@@ -1,0 +1,423 @@
+"""Serial NumPy float64 golden pipeline — the port's copy of the feature
+goldens of ``tpufeat/reference/cpu.py``.
+
+The numerical oracle against which the accelerated path is validated with
+max-abs-error, usable where jax is not installed (``chip_smoke.py`` on the
+GPU host). Everything is float64, stage-by-stage, written for auditability
+rather than speed. The goldens of the families the port has not reached yet
+(pitch, PNCC, the speaker stack, the models) arrive with their slices.
+
+The radix-2 FFT here mirrors the reference's centerpiece OpenCL kernel
+(SURVEY.md §2 C5: iterative Cooley-Tukey, bit-reversal + log2(N) butterfly
+passes) in pure NumPy; the pipeline itself uses ``np.fft.rfft`` and the two
+are cross-validated in tests (the radix-2 path only applies to power-of-two
+n_fft).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpufeat_torch import matrices
+from tpufeat_torch.config import FeatureConfig
+
+__all__ = [
+    "radix2_fft",
+    "preemphasis",
+    "frame_signal",
+    "spectrogram",
+    "logmel",
+    "mfcc",
+    "plp",
+    "deltas",
+    "cmvn",
+    "frame_energy",
+    "extract",
+]
+
+
+# ---------------------------------------------------------------------------
+# Radix-2 iterative FFT (audit twin of the reference's OpenCL kernel, C5)
+# ---------------------------------------------------------------------------
+
+def radix2_fft(x: np.ndarray) -> np.ndarray:
+    """Iterative Cooley-Tukey radix-2 DIT FFT, complex128, length power of 2.
+
+    Bit-reversal permutation followed by log2(N) butterfly passes — the same
+    schedule the reference's OpenCL kernel runs with one work-item per
+    butterfly pair and a barrier between passes (SURVEY.md §3.1).
+    """
+    x = np.asarray(x, dtype=np.complex128).copy()
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"radix2_fft needs power-of-two length, got {n}")
+    levels = n.bit_length() - 1
+    # bit-reversal permutation
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(levels):
+        rev |= ((idx >> b) & 1) << (levels - 1 - b)
+    x = x[..., rev]
+    # butterfly passes
+    half = 1
+    while half < n:
+        w = np.exp(-2j * np.pi * np.arange(half) / (2 * half))
+        x = x.reshape(x.shape[:-1] + (n // (2 * half), 2 * half))
+        even = x[..., :half]
+        odd = x[..., half:] * w
+        x = np.concatenate([even + odd, even - odd], axis=-1)
+        x = x.reshape(x.shape[:-2] + (n,))
+        half *= 2
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages (all float64)
+# ---------------------------------------------------------------------------
+
+def preemphasis(x: np.ndarray, alpha: float, prev: float = 0.0) -> np.ndarray:
+    """y[t] = x[t] - alpha*x[t-1], with x[-1] := prev (0 for one-shot).
+
+    Reference C2. ``prev`` carries the last raw sample of the previous chunk
+    in streaming mode (config 4)."""
+    x = np.asarray(x, dtype=np.float64)
+    if alpha == 0.0:
+        return x.copy()
+    shifted = np.concatenate([np.array([prev], dtype=np.float64), x[:-1]])
+    return x - alpha * shifted
+
+
+def _reflect_pad(x: np.ndarray, pad: int) -> np.ndarray:
+    """librosa/torch-style reflect padding (no edge repetition)."""
+    return np.pad(x, (pad, pad), mode="reflect")
+
+
+def frame_signal(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Slice into overlapped frames [n_frames, frame_length] (reference C3).
+
+    center=False: snip-edges, frames = 1 + (N - frame_length)//hop.
+    center=True: reflect-pad n_fft//2 each side, frame t starts at
+    t*hop - n_fft//2 in the original signal (Whisper/torch.stft convention),
+    optionally dropping the final frame.
+    """
+    x = np.asarray(x, dtype=np.float64)
+    n = x.shape[0]
+    fl, hop = cfg.frame_length, cfg.hop_length
+    nf = cfg.num_frames(n)
+    if cfg.center:
+        x = _reflect_pad(x, cfg.n_fft // 2)
+    if nf <= 0:
+        return np.zeros((0, fl), dtype=np.float64)
+    idx = np.arange(nf).reshape(-1, 1) * hop + np.arange(fl).reshape(1, -1)
+    return x[idx]
+
+
+def _window_frames(frames: np.ndarray, cfg: FeatureConfig,
+                   rng: np.random.Generator | None = None) -> np.ndarray:
+    """Per-frame conditioning + window (references C2/C4).
+
+    In kaldi_mode the reference order is applied per frame: dither,
+    DC-offset removal, pre-emphasis within the frame (x[-1] := x[0]), then
+    window. Dither (cfg.dither > 0) is a randomized augmentation knob: the
+    golden applies it here per frame copy in kaldi_mode and at the sample
+    level in :func:`spectrogram` otherwise, mirroring the accelerated
+    path's ``extract(..., rng=...)`` — equivalent in distribution, never
+    bit-comparable, so parity tests always run with dither = 0."""
+    frames = frames.astype(np.float64)
+    if cfg.kaldi_mode:
+        if cfg.dither > 0:
+            rng = rng or np.random.default_rng(0)
+            frames = frames + cfg.dither * rng.standard_normal(frames.shape)
+        if cfg.dc_offset:
+            frames = frames - frames.mean(axis=-1, keepdims=True)
+        if cfg.preemphasis:
+            first = frames[..., :1] - cfg.preemphasis * frames[..., :1]
+            rest = frames[..., 1:] - cfg.preemphasis * frames[..., :-1]
+            frames = np.concatenate([first, rest], axis=-1)
+    w = matrices.window(cfg.window, cfg.frame_length)
+    return frames * w
+
+
+def spectrogram(x: np.ndarray, cfg: FeatureConfig,
+                preemph_prev: float = 0.0) -> np.ndarray:
+    """Signal -> power/magnitude spectrogram [n_frames, n_fft//2+1].
+
+    References C2-C6 composed: dither (when configured), pre-emphasis
+    (signal-level unless kaldi_mode), framing, window, zero-pad to n_fft,
+    rFFT, |.|^2 (or |.|)."""
+    x = np.asarray(x, dtype=np.float64)
+    if cfg.dither > 0 and not cfg.kaldi_mode:
+        # sample-level dither, mirroring the accelerated path (kaldi_mode
+        # applies it per frame copy in _window_frames instead)
+        x = x + cfg.dither * np.random.default_rng(0).standard_normal(x.shape)
+    if cfg.preemphasis and not cfg.kaldi_mode:
+        x = preemphasis(x, cfg.preemphasis, preemph_prev)
+    frames = frame_signal(x, cfg)
+    frames = _window_frames(frames, cfg)
+    spec = np.fft.rfft(frames, n=cfg.n_fft, axis=-1)
+    mag2 = spec.real**2 + spec.imag**2
+    return mag2 if cfg.spectrum == "power" else np.sqrt(mag2)
+
+
+def logmel(x: np.ndarray, cfg: FeatureConfig,
+           preemph_prev: float = 0.0) -> np.ndarray:
+    """Signal -> (log-)mel features [n_frames, n_mels] (references C7+C8)."""
+    spec = spectrogram(x, cfg, preemph_prev)
+    fb = matrices.mel_filterbank(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax_hz,
+        cfg.mel_scale, cfg.mel_norm, cfg.mel_bin_style,
+        cfg.vtln_warp, cfg.vtln_low, cfg.vtln_high)
+    mel = spec @ fb
+    return apply_log(mel, cfg)
+
+
+def apply_log(mel: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Log compression (reference C8). ``whisper`` applies the full Whisper
+    normalization: log10 -> clamp at (per-utterance) max-8 -> (x+4)/4."""
+    if cfg.log == "none":
+        return mel
+    if cfg.log == "natural":
+        return np.log(np.maximum(mel, cfg.log_floor))
+    if cfg.log == "log10":
+        return np.log10(np.maximum(mel, cfg.log_floor))
+    if cfg.log == "whisper":
+        ls = np.log10(np.maximum(mel, cfg.log_floor))
+        ls = np.maximum(ls, ls.max() - 8.0)
+        return (ls + 4.0) / 4.0
+    raise ValueError(cfg.log)
+
+
+def frame_energy(x: np.ndarray, cfg: FeatureConfig,
+                 preemph_prev: float = 0.0) -> np.ndarray:
+    """Kaldi-style log frame energy: log(max(sum x^2, floor)) over the
+    conditioned (pre-emphasized, unwindowed) frame."""
+    x = np.asarray(x, dtype=np.float64)
+    if cfg.preemphasis and not cfg.kaldi_mode:
+        x = preemphasis(x, cfg.preemphasis, preemph_prev)
+    frames = frame_signal(x, cfg)
+    if cfg.kaldi_mode:
+        if cfg.dc_offset:
+            frames = frames - frames.mean(axis=-1, keepdims=True)
+        if cfg.preemphasis:
+            first = frames[..., :1] - cfg.preemphasis * frames[..., :1]
+            rest = frames[..., 1:] - cfg.preemphasis * frames[..., :-1]
+            frames = np.concatenate([first, rest], axis=-1)
+    e = (frames ** 2).sum(axis=-1)
+    return np.log(np.maximum(e, cfg.log_floor))
+
+
+def mfcc(x: np.ndarray, cfg: FeatureConfig,
+         preemph_prev: float = 0.0) -> np.ndarray:
+    """Signal -> MFCC [n_frames, n_mfcc] (reference C9)."""
+    lm = logmel(x, cfg, preemph_prev)
+    dct = matrices.dct_matrix(cfg.n_mels, cfg.n_mfcc)
+    out = lm @ dct
+    if cfg.lifter > 0:
+        out = out * matrices.lifter_vector(cfg.n_mfcc, cfg.lifter)
+    if cfg.use_energy:
+        out = out.copy()
+        out[:, 0] = frame_energy(x, cfg, preemph_prev)
+    return out
+
+
+def plp(x: np.ndarray, cfg: FeatureConfig,
+        preemph_prev: float = 0.0) -> np.ndarray:
+    """Signal -> PLP cepstra [n_frames, plp_order+1] (beyond-reference
+    family; formula conventions in tpufeat/plp.py's docstring).
+
+    Deliberately implemented with DIFFERENT algorithms than the
+    accelerated path so agreement is meaningful: the autocorrelation is
+    an explicit even-symmetric extension + np.fft.ifft (vs the cos-matrix
+    matmul), and the LPC solve is a direct per-frame Toeplitz system via
+    scipy (vs the unrolled Levinson-Durbin recursion)."""
+    from scipy.linalg import solve_toeplitz
+
+    order = cfg.plp_order
+    spec = spectrogram(x, cfg, preemph_prev)
+    fb = matrices.mel_filterbank(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax_hz,
+        cfg.mel_scale, cfg.mel_norm, cfg.mel_bin_style,
+        cfg.vtln_warp, cfg.vtln_low, cfg.vtln_high)
+    mel = spec @ fb
+    el = matrices.equal_loudness_vector(
+        cfg.n_mels, cfg.fmin, cfg.fmax_hz, cfg.mel_scale)
+    p = np.maximum(mel * el, cfg.log_floor) ** cfg.plp_compress
+    a = np.concatenate([p[:, :1], p, p[:, -1:]], axis=1)   # [F, M+2]
+    sym = np.concatenate([a, a[:, -2:0:-1]], axis=1)       # period 2(M+1)
+    r = np.fft.ifft(sym, axis=1).real[:, : order + 1]
+    lpc = np.zeros((r.shape[0], order))
+    for f in range(r.shape[0]):
+        lpc[f] = solve_toeplitz(r[f, :order], r[f, 1: order + 1])
+    err = r[:, 0] - (lpc * r[:, 1:]).sum(axis=1)
+    c = np.zeros_like(lpc)
+    for n in range(1, order + 1):
+        acc = lpc[:, n - 1].copy()
+        for k in range(1, n):
+            acc += (k / n) * c[:, k - 1] * lpc[:, n - k - 1]
+        c[:, n - 1] = acc
+    out = np.concatenate(
+        [np.log(np.maximum(err, cfg.log_floor))[:, None], c], axis=1)
+    if cfg.lifter > 0:
+        out = out * matrices.lifter_vector(order + 1, cfg.lifter)
+    return out
+
+
+def deltas(feat: np.ndarray, window: int = 2) -> np.ndarray:
+    """Regression deltas d_t = sum_n n*(c_{t+n}-c_{t-n}) / (2*sum_n n^2)
+    with replicated edge padding (reference C16 / SURVEY.md §2.1 config 3)."""
+    n = window
+    denom = 2.0 * sum(i * i for i in range(1, n + 1))
+    padded = np.pad(feat, ((n, n), (0, 0)), mode="edge")
+    out = np.zeros_like(feat)
+    for i in range(1, n + 1):
+        out += i * (padded[n + i: n + i + feat.shape[0]]
+                    - padded[n - i: n - i + feat.shape[0]])
+    return out / denom
+
+
+def cmvn(feat: np.ndarray, mode: str = "mean") -> np.ndarray:
+    """Per-utterance cepstral mean (and variance) normalization (C16)."""
+    if mode == "none":
+        return feat
+    out = feat - feat.mean(axis=0, keepdims=True)
+    if mode == "meanvar":
+        out = out / np.sqrt(feat.var(axis=0, keepdims=True) + 1e-10)
+    return out
+
+
+def sliding_cmvn(feat: np.ndarray, window: int = 600,
+                 min_window: int = 100, center: bool = False,
+                 norm_vars: bool = False) -> np.ndarray:
+    """Sliding-window cepstral mean (and variance) normalization — the
+    float64 golden for :func:`tpufeat.features.sliding_cmvn` (the online
+    normalization online ASR actually deploys; Kaldi's
+    ``apply-cmvn-sliding``, whose window-clamping rules this reproduces;
+    reference C16's online sibling).
+
+    Per frame t of [T, D] ``feat`` the window is:
+      - ``center=True``: ``[t - window//2, t - window//2 + window)``;
+      - ``center=False`` (causal): ``[t - window, t + 1)``, except the
+        first frames borrow future context up to ``min_window`` frames so
+        early estimates aren't single-frame noise.
+    Both are then clamped inside ``[0, T)`` by shifting (not shrinking,
+    except when T itself is short). Direct per-frame loops — the oracle,
+    not the fast path."""
+    T, _ = feat.shape
+    x = feat.astype(np.float64)
+    out = np.empty_like(x)
+    for t in range(T):
+        if center:
+            ws = t - window // 2
+            we = ws + window
+        else:
+            ws = t - window
+            we = t + 1
+        if ws < 0:
+            we -= ws
+            ws = 0
+        if not center and we > t + 1:
+            we = max(t + 1, min_window)
+        if we > T:
+            ws = max(ws - (we - T), 0)
+            we = T
+        seg = x[ws:we]
+        mean = seg.mean(axis=0)
+        out[t] = x[t] - mean
+        if norm_vars:
+            var = np.maximum((seg * seg).mean(axis=0) - mean * mean,
+                             1e-10)
+            out[t] /= np.sqrt(var)
+    return out
+
+
+def online_cmvn(feat: np.ndarray, window: int = 600,
+                speaker_stats=None, global_stats=None,
+                speaker_frames: int = 600, global_frames: int = 200,
+                norm_vars: bool = False) -> np.ndarray:
+    """Kaldi online2 ``OnlineCmvn`` — the float64 golden for
+    :func:`tpufeat.features.online_cmvn`: per frame t the statistics are
+    the trailing ``min(t+1, window)`` frames, smoothed (while the window
+    is short) with up to ``speaker_frames`` worth of the speaker prior
+    then up to ``global_frames`` of the global prior, total never
+    exceeding ``window`` (the SmoothOnlineCmvnStats rule). Priors are
+    ``(count, sum, sumsq)`` triples or :class:`tpufeat.data.CmvnStats`.
+    Direct per-frame loop — the oracle, not the fast path."""
+    def unpack(st):
+        if st is None:
+            return 0.0, 0.0, 0.0
+        if isinstance(st, (tuple, list)):  # tuples HAVE a .count method
+            return float(st[0]), np.asarray(st[1], np.float64), \
+                np.asarray(st[2], np.float64)
+        return float(st.count), np.asarray(st.sum, np.float64), \
+            np.asarray(st.sumsq, np.float64)
+
+    cs, ssum, ssq = unpack(speaker_stats)
+    cg, gsum, gsq = unpack(global_stats)
+    T, _ = feat.shape
+    x = feat.astype(np.float64)
+    out = np.empty_like(x)
+    for t in range(T):
+        seg = x[max(0, t + 1 - window): t + 1]
+        c = float(len(seg))
+        tot_sum = seg.sum(axis=0)
+        tot_sq = (seg * seg).sum(axis=0)
+        ks = min(max(window - c, 0.0), float(speaker_frames), cs)
+        if ks > 0:
+            tot_sum = tot_sum + (ks / cs) * ssum
+            tot_sq = tot_sq + (ks / cs) * ssq
+        kg = min(max(window - c - ks, 0.0), float(global_frames), cg)
+        if kg > 0:
+            tot_sum = tot_sum + (kg / cg) * gsum
+            tot_sq = tot_sq + (kg / cg) * gsq
+        n = c + ks + kg
+        mean = tot_sum / n
+        out[t] = x[t] - mean
+        if norm_vars:
+            var = np.maximum(tot_sq / n - mean * mean, 1e-10)
+            out[t] /= np.sqrt(var)
+    return out
+
+
+
+
+def extract(x: np.ndarray, cfg: FeatureConfig,
+            preemph_prev: float = 0.0) -> np.ndarray:
+    """Full golden pipeline: signal -> features [n_frames, feature_dim].
+
+    The float64 oracle for the end-to-end parity tests (SURVEY.md §4)."""
+    if cfg.plp_order > 0:
+        base = plp(x, cfg, preemph_prev)
+    elif cfg.pncc:
+        raise NotImplementedError(
+            "the PNCC golden arrives with the PNCC slice "
+            "(ROADMAP.md queue 1, item 7)")
+    elif cfg.n_mfcc > 0:
+        base = mfcc(x, cfg, preemph_prev)
+    elif cfg.n_mels == 0:
+        # spectrogram features (Kaldi compute-spectrogram-feats analogue):
+        # (log-)power spectrum, optionally with the conditioned-frame log
+        # energy substituted into element 0 (same substitution as MFCC c0)
+        base = apply_log(spectrogram(x, cfg, preemph_prev), cfg)
+        if cfg.use_energy:
+            base = base.copy()
+            base[:, 0] = frame_energy(x, cfg, preemph_prev)
+    else:
+        base = logmel(x, cfg, preemph_prev)
+        if cfg.use_energy:
+            # fbank + energy (Kaldi compute-fbank-feats --use-energy):
+            # the log frame energy is PREPENDED (dim n_mels+1), unlike
+            # the MFCC / spectrogram substitution of element 0
+            base = np.concatenate(
+                [frame_energy(x, cfg, preemph_prev)[:, None], base],
+                axis=-1)
+    if cfg.deltas:
+        outs, d = [base], base
+        for _ in range(cfg.delta_order):
+            d = deltas(d, cfg.delta_window)
+            outs.append(d)
+        base = np.concatenate(outs, axis=-1)
+    if cfg.cmvn.startswith("sliding"):
+        return sliding_cmvn(base, cfg.cmvn_window, cfg.cmvn_min_window,
+                            cfg.cmvn_center,
+                            cfg.cmvn.endswith("meanvar"))
+    return cmvn(base, cfg.cmvn)
