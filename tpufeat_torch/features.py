@@ -6,11 +6,14 @@ length-dependent reduction (Whisper's per-utterance max) sees valid frames
 only, so padding contents never leak into valid outputs.
 
 With ``use_pallas + gemm_dft + fused_framing`` set, framing, DFT, mel, log
-and DCT run in ONE kernel (``kernels/signal.py``): the Hopper kernel for a
-CUDA tensor, its plain twin for a CPU tensor. Otherwise the plain torch
+and DCT run in ONE kernel (``kernels/signal.py``). With ``use_pallas``
+alone the frames are built first and the staged kernels run
+(``kernels/staged.py``): the GEMM kernel with ``gemm_dft``, else
+``torch.fft.rfft`` and the tail kernel. Each is the Hopper kernel for a
+CUDA tensor and its plain twin for a CPU tensor. Otherwise the plain torch
 composition runs (``torch.fft.rfft`` or the GEMM DFT, then mel, log, DCT).
-Configs this slice does not cover raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+Configs the port does not cover yet raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from tpufeat_torch import framing, matrices, spectrum
 from tpufeat_torch.config import MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
+from tpufeat_torch.kernels import staged
 
 
 class FeatureResult(NamedTuple):
@@ -35,7 +39,7 @@ class FeatureResult(NamedTuple):
 
 
 def _refuse_unported(cfg: FeatureConfig) -> None:
-    """Raise for a config this slice does not cover: it is refused, not
+    """Raise for a config the port does not cover yet: it is refused, not
     run some other way."""
     unported = [
         (cfg.deltas, "deltas", "queue 1, item 5 (Kaldi-39)"),
@@ -43,13 +47,9 @@ def _refuse_unported(cfg: FeatureConfig) -> None:
          "queue 1, item 5 (Kaldi-39)"),
         (cfg.plp_order > 0, "plp_order", "queue 1, item 7"),
         (cfg.pncc, "pncc", "queue 1, item 7"),
-        (cfg.use_energy, "use_energy", "queue 1, item 7"),
         (cfg.dither > 0, "dither", "queue 1, item 7"),
         (cfg.n_mels == 0, "n_mels=0 (spectrogram features)",
          "queue 1, item 7"),
-        (cfg.use_pallas and not (cfg.gemm_dft and cfg.fused_framing),
-         "use_pallas without gemm_dft + fused_framing (the staged kernels)",
-         "queue 2, items 2-3"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -121,16 +121,52 @@ def mel_log_dct_xla(spec: torch.Tensor, mask: torch.Tensor,
     return dct_lifter(logm, cfg)
 
 
+def _log_energy(frames: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """log(max(sum x^2, floor)) over each conditioned (unwindowed) frame."""
+    return torch.log(torch.clamp((frames * frames).sum(dim=-1),
+                                 min=cfg.log_floor))
+
+
+def _replace_c0_with_energy(feat: torch.Tensor, frames: torch.Tensor,
+                            cfg: FeatureConfig) -> torch.Tensor:
+    """Kaldi use_energy: c0 := the frame's log energy."""
+    e = _log_energy(frames, cfg).to(feat.dtype)
+    return torch.cat([e[..., None], feat[..., 1:]], dim=-1)
+
+
+def _apply_energy(feat: torch.Tensor, frames: torch.Tensor,
+                  cfg: FeatureConfig) -> torch.Tensor:
+    """Route cfg.use_energy per family: MFCC substitutes element 0; fbank
+    (n_mfcc=0) PREPENDS the energy column (Kaldi compute-fbank-feats
+    --use-energy, dim n_mels+1)."""
+    if cfg.n_mfcc > 0 or cfg.n_mels == 0:
+        return _replace_c0_with_energy(feat, frames, cfg)
+    e = _log_energy(frames, cfg).to(feat.dtype)
+    return torch.cat([e[..., None], feat], dim=-1)
+
+
 def spectro_pipeline(frames: torch.Tensor, mask: torch.Tensor,
-                     cfg: FeatureConfig) -> torch.Tensor:
-    """Conditioned (unwindowed) frames -> features: the plain path (GEMM DFT
-    when ``gemm_dft``, else rfft), then mel -> log -> DCT."""
-    if cfg.gemm_dft:
-        spec = spectrum.power_spectrum_gemm(frames, cfg)
+                     cfg: FeatureConfig, use_pallas: bool | None = None
+                     ) -> torch.Tensor:
+    """Conditioned (unwindowed) frames -> features: the staged path shared
+    by one-shot extraction and streaming. ``use_pallas`` (default: the
+    flag, for a call with frames) routes to the staged kernels; else the
+    plain path (GEMM DFT when ``gemm_dft``, else rfft), then mel -> log ->
+    DCT. ``use_energy`` then puts the log frame energy in."""
+    if use_pallas is None:
+        use_pallas = cfg.use_pallas and frames.shape[-2] > 0
+    if use_pallas:
+        feat = staged.spectro_features(frames, mask, cfg)
     else:
-        w = _const(matrices.window(cfg.window, cfg.frame_length), frames)
-        spec = spectrum.power_spectrum_rfft(frames * w, cfg)
-    return mel_log_dct_xla(spec, mask, cfg)
+        if cfg.gemm_dft:
+            spec = spectrum.power_spectrum_gemm(frames, cfg)
+        else:
+            w = _const(matrices.window(cfg.window, cfg.frame_length), frames)
+            spec = spectrum.power_spectrum_rfft(frames * w, cfg)
+        feat = mel_log_dct_xla(spec, mask, cfg)
+    if cfg.use_energy:
+        feat = _apply_energy(feat, frames, cfg)
+    return feat
 
 
 # ---------------------------------------------------------------------------
@@ -146,21 +182,27 @@ def features_impl(x: torch.Tensor, lengths: torch.Tensor,
     if cfg.preemphasis and not cfg.kaldi_mode:
         x = framing.preemphasize(x, cfg.preemphasis)
     F = cfg.num_frames(x.shape[-1])
-    if cfg.use_pallas and F > 0:
+    use_pallas = cfg.use_pallas and F > 0
+    if use_pallas and cfg.gemm_dft and cfg.fused_framing:
         # fused path: framing happens inside the kernel, so the
         # [B, F, frame_length] tensor never exists in device memory;
         # kaldi_mode's per-frame conditioning is folded into its DFT matrix
         buf, mask = framing.framing_buffer(x, lengths, cfg)
-        feat = signal_kernel.signal_features(
-            buf.to(torch.float32).contiguous(), F, cfg)
+        buf = buf.to(torch.float32).contiguous()
+        feat = signal_kernel.signal_features(buf, F, cfg)
         if cfg.log == "whisper":
             feat = whisper_normalize(feat, mask)
             if cfg.n_mfcc > 0:
                 feat = dct_lifter(feat, cfg)
+        if cfg.use_energy:
+            frames = framing.frames_from_buffer(
+                buf, F, cfg.frame_length, cfg.hop_length)
+            frames = framing.condition_frames(frames, cfg)
+            feat = _apply_energy(feat, frames, cfg)
     else:
         frames, mask = framing.frame_signal(x, lengths, cfg)
         frames = framing.condition_frames(frames, cfg)
-        feat = spectro_pipeline(frames, mask, cfg)
+        feat = spectro_pipeline(frames, mask, cfg, use_pallas=use_pallas)
     return feat, mask
 
 
@@ -174,19 +216,24 @@ def finish_impl(feat: torch.Tensor, mask: torch.Tensor,
     return FeatureResult(feat, mask, nf)
 
 
+def placed(signal, device) -> torch.Tensor:
+    """``signal`` as a tensor: numpy goes to ``device`` (default CPU), a
+    tensor stays where it lives and ``device``, if given, must name it."""
+    if not isinstance(signal, torch.Tensor):
+        return torch.as_tensor(np.asarray(signal), device=device or "cpu")
+    want = torch.device(device) if device is not None else signal.device
+    if signal.device.type != want.type or \
+            want.index not in (None, signal.device.index):
+        raise ValueError(f"signal lives on {signal.device}, not on "
+                         f"{device}: move it first")
+    return signal
+
+
 def _prep(signal, lengths, device):
     """Input promotion: numpy goes to ``device`` (default CPU), a tensor
     stays where it lives. int16 is scaled by 1/32768, float64 stays float64,
     anything else becomes float32."""
-    if isinstance(signal, torch.Tensor):
-        x = signal
-        want = torch.device(device) if device is not None else x.device
-        if x.device.type != want.type or \
-                want.index not in (None, x.device.index):
-            raise ValueError(f"signal lives on {x.device}, not on {device}: "
-                             "move it first")
-    else:
-        x = torch.as_tensor(np.asarray(signal), device=device or "cpu")
+    x = placed(signal, device)
     if x.dtype == torch.int16:
         x = x.to(torch.float32) / 32768.0
     elif x.dtype != torch.float64:

@@ -29,10 +29,14 @@ The tensor-core mappings are later work.
 Bits: the tile (TILE_FRAMES frames) and the order of every sum are fixed,
 whatever the call's shape, so a frame's features do not depend on where it
 falls in a call.
+
+The staged kernels (``kernels/staged.py``) live in the same library and
+share this module's binding (:func:`lib`), constants and twin body.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -55,15 +59,30 @@ def _frozen(a: np.ndarray) -> np.ndarray:
     return a
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Full fp32 matrix products inside the block (a plain twin states its
+    precision); the caller's TF32 flags are restored on exit."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
 @functools.lru_cache(maxsize=None)
-def cs_constant(cfg: FeatureConfig) -> np.ndarray:
+def cs_constant(cfg: FeatureConfig, fold_kaldi: bool = True) -> np.ndarray:
     """Combined windowed Re/Im DFT matrix [frame_length, 2*n_bins - 2],
-    float32, with kaldi_mode's per-frame conditioning folded in (the
-    kernel sees the raw signal). Columns: Re of bins 0..n_bins-1, then Im
-    of bins 1..n_bins-2 (``matrices.dft_matrix_combined``)."""
+    float32. Columns: Re of bins 0..n_bins-1, then Im of bins 1..n_bins-2
+    (``matrices.dft_matrix_combined``). ``fold_kaldi`` folds kaldi_mode's
+    per-frame conditioning in, for the signal kernel, which sees the raw
+    signal; the staged kernel gets conditioned frames and must not fold it
+    again."""
     cs = matrices.dft_matrix_combined(cfg.frame_length, cfg.n_fft,
                                       cfg.window)
-    if cfg.kaldi_mode and (cfg.dc_offset or cfg.preemphasis):
+    if fold_kaldi and cfg.kaldi_mode and (cfg.dc_offset or cfg.preemphasis):
         cond = matrices.kaldi_conditioning_matrix(
             cfg.frame_length, cfg.preemphasis if cfg.preemphasis else 0.0,
             cfg.dc_offset)
@@ -102,11 +121,15 @@ def dct_constant(cfg: FeatureConfig) -> np.ndarray | None:
     return _frozen(dct.astype(np.float32))
 
 
+def put(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
+    """A cached constant as a tensor on ``device`` (None stays None)."""
+    return None if a is None else torch.tensor(a, device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_constants(cfg: FeatureConfig, device: torch.device):
-    def put(a):
-        return None if a is None else torch.tensor(a, device=device)
-    return put(cs_constant(cfg)), put(fb_constant(cfg)), put(dct_constant(cfg))
+    return (put(cs_constant(cfg), device), put(fb_constant(cfg), device),
+            put(dct_constant(cfg), device))
 
 
 def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
@@ -128,26 +151,10 @@ def _out_dim(cfg: FeatureConfig) -> int:
     return cfg.n_mels if dct_constant(cfg) is None else cfg.n_mfcc
 
 
-def signal_features_reference(buf: torch.Tensor, n_frames: int,
-                              cfg: FeatureConfig) -> torch.Tensor:
-    """Plain torch twin of :func:`signal_features`, the same decomposition:
-    frames -> frames @ CS -> square (or |X|) -> @ fb -> log -> @ dct."""
-    _check(buf, n_frames, cfg)
-    if buf.is_cuda:
-        # a reference states its precision: full fp32 products, no TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    cs, fb, dct = _device_constants(cfg, buf.device)
-    frames = framing.frames_from_buffer(buf, n_frames, cfg.frame_length,
-                                        cfg.hop_length)
-    z = frames @ cs
-    sq = z * z
-    if cfg.spectrum == "magnitude":
-        nb = cfg.n_bins
-        im2 = torch.zeros_like(sq[..., :nb])
-        im2[..., 1: nb - 1] = sq[..., nb:]
-        sq = torch.sqrt(sq[..., :nb] + im2)
-    mel = sq @ fb
+def log_tail(mel: torch.Tensor, dct: torch.Tensor | None,
+             cfg: FeatureConfig) -> torch.Tensor:
+    """The twins' shared tail after the mel product: the floored log (or
+    none), then the DCT when the kernel runs it."""
     kind = _LOG_KIND[cfg.log]
     if kind == 1:
         mel = torch.log(torch.clamp(mel, min=cfg.log_floor))
@@ -156,37 +163,74 @@ def signal_features_reference(buf: torch.Tensor, n_frames: int,
     return mel if dct is None else mel @ dct
 
 
+def dft_tail(frames: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
+             dct: torch.Tensor | None, cfg: FeatureConfig) -> torch.Tensor:
+    """The twins' shared body from frames on: frames @ CS -> square (or
+    |X|) -> @ fb -> :func:`log_tail`."""
+    z = frames @ cs
+    sq = z * z
+    if cfg.spectrum == "magnitude":
+        nb = cfg.n_bins
+        im2 = torch.zeros_like(sq[..., :nb])
+        im2[..., 1: nb - 1] = sq[..., nb:]
+        sq = torch.sqrt(sq[..., :nb] + im2)
+    return log_tail(sq @ fb, dct, cfg)
+
+
+def signal_features_reference(buf: torch.Tensor, n_frames: int,
+                              cfg: FeatureConfig) -> torch.Tensor:
+    """Plain torch twin of :func:`signal_features`, the same decomposition:
+    frames -> frames @ CS -> square (or |X|) -> @ fb -> log -> @ dct."""
+    _check(buf, n_frames, cfg)
+    cs, fb, dct = _device_constants(cfg, buf.device)
+    frames = framing.frames_from_buffer(buf, n_frames, cfg.frame_length,
+                                        cfg.hop_length)
+    with no_tf32():
+        return dft_tail(frames, cs, fb, dct, cfg)
+
+
 @functools.lru_cache(maxsize=None)
-def _lib(csrc: str) -> ctypes.CDLL:
-    lib = _build.load(csrc).lib
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.tpufeat_signal_features.argtypes = [
-        i, p, i, i, i, i, i, p, i, p, i, i, i, i, i, ctypes.c_float, p, i,
-        p, p]
-    lib.tpufeat_signal_resources.argtypes = [i, i, i, i, ctypes.POINTER(i),
-                                             ctypes.POINTER(i)]
-    lib.tpufeat_signal_features.restype = i
-    lib.tpufeat_signal_resources.restype = i
-    lib.tpufeat_cuda_error_string.argtypes = [i]
-    lib.tpufeat_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+def lib(csrc: str) -> ctypes.CDLL:
+    """The kernel library of ``csrc``, built at the first call, with every
+    entry point's argument types declared."""
+    so = _build.load(csrc).lib
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    ll, out = ctypes.c_longlong, ctypes.POINTER(i)
+    for name, args in (
+            ("tpufeat_signal_features",
+             [i, p, i, ll, i, i, i, p, i, p, i, i, i, i, i, f, p, i, p, p]),
+            ("tpufeat_mel_log_dct", [i, p, i, i, p, i, i, f, p, i, p, p]),
+            ("tpufeat_signal_resources", [i, i, i, i, out, out]),
+            ("tpufeat_tail_resources", [i, i, out, out])):
+        getattr(so, name).argtypes = args
+        getattr(so, name).restype = i
+    so.tpufeat_cuda_error_string.argtypes = [i]
+    so.tpufeat_cuda_error_string.restype = ctypes.c_char_p
+    return so
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def raise_on(so: ctypes.CDLL, err: int, what: str) -> None:
+    """Turn an entry point's CUDA error code into an exception."""
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err} "
-                           f"({lib.tpufeat_cuda_error_string(err).decode()})")
+                           f"({so.tpufeat_cuda_error_string(err).decode()})")
+
+
+def query_resources(query, *args) -> tuple[int, int]:
+    """(dynamic shared memory per block in bytes, blocks per SM) from one
+    of the library's resource queries, on the current CUDA device."""
+    so = lib(str(_build.CSRC))
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    raise_on(so, getattr(so, query)(*args, ctypes.byref(smem),
+                                    ctypes.byref(blocks)), "occupancy query")
+    return smem.value, blocks.value
 
 
 def resources(cfg: FeatureConfig) -> tuple[int, int]:
     """(dynamic shared memory per block in bytes, blocks per SM) of the
     kernel's launch for ``cfg`` on the current CUDA device."""
-    lib = _lib(str(_build.CSRC))
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    _raise_on(lib, lib.tpufeat_signal_resources(
-        cfg.hop_length, cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels,
-        ctypes.byref(smem), ctypes.byref(blocks)), "occupancy query")
-    return smem.value, blocks.value
+    return query_resources("tpufeat_signal_resources", cfg.hop_length,
+                           cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels)
 
 
 def signal_features(buf: torch.Tensor, n_frames: int,
@@ -202,19 +246,19 @@ def signal_features(buf: torch.Tensor, n_frames: int,
         return signal_features_reference(buf, n_frames, cfg)
     if buf.device.type != "cuda":
         raise ValueError(f"no signal kernel for device {buf.device}")
-    lib = _lib(str(_build.CSRC))
+    so = lib(str(_build.CSRC))
     cs, fb, dct = _device_constants(cfg, buf.device)
     B, M = buf.shape
     out = torch.empty(B, n_frames, _out_dim(cfg), device=buf.device,
                       dtype=torch.float32)
     magnitude = cfg.spectrum == "magnitude"
-    err = lib.tpufeat_signal_features(
+    err = so.tpufeat_signal_features(
         buf.device.index, buf.data_ptr(), B, M, n_frames, cfg.hop_length,
         cfg.frame_length, cs.data_ptr(), cs.shape[1], fb.data_ptr(),
         fb.shape[0], cfg.n_mels, int(magnitude), cfg.n_bins,
         _LOG_KIND[cfg.log], cfg.log_floor,
         None if dct is None else dct.data_ptr(), out.shape[-1],
         out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
-    _raise_on(lib, err, "signal kernel launch")
+    raise_on(so, err, "signal kernel launch")
     launches += 1
     return out

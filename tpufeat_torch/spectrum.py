@@ -21,6 +21,8 @@ from tpufeat_torch.config import FeatureConfig
 def power_spectrum_rfft(windowed: torch.Tensor,
                         cfg: FeatureConfig) -> torch.Tensor:
     """[..., frame_length] windowed frames -> [..., n_bins] spectrum."""
+    if windowed.numel() == 0:          # MKL's FFT refuses an empty batch
+        return windowed.new_zeros(*windowed.shape[:-1], cfg.n_bins)
     spec = torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1)
     p = spec.real * spec.real + spec.imag * spec.imag
     return p if cfg.spectrum == "power" else torch.sqrt(p)
