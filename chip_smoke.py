@@ -16,12 +16,19 @@ through K3 and through cuFFT + K4, checked and timed the same way; and the
 streaming front-end at serving size (4096 streams of 100 ms chunks) through
 ``StreamingFrontend``, ``extract_scan`` and the dynamic step, checked bit
 for bit across chunk plans, each path held against the same path with its
-kernel replaced by the plain twin on every stream, and timed per step.
+kernel replaced by the plain twin on every stream, and timed per step; and
+the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
+``tpufeat_torch.experiments`` at its script's own shape through
+``anatomy_features``, each held against its plain twin and both timed, with
+the mode's bound, then every precision's pass count at the scripts' shape
+(the ``dftonly`` tail, and the mel product behind an identity DFT).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Any failure exits non-zero; nothing is caught. Needs one
-CUDA card and nvcc; imports nothing of jax or tpufeat. The last line of
-stdout is one JSON object: {"ok": true, "device": {...}}.
+CUDA card and nvcc; imports nothing of jax or tpufeat. The line before the
+last is the kernels' JSON summary (time, bound, launches, plain and library
+times); the last line of stdout is one JSON object:
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib
 import itertools
 import json
 import statistics
@@ -55,6 +63,9 @@ STAGED_K4 = dict(use_pallas=True, matmul_precision="bf16x3")
 ROWS = (1, 31, 32, 33, 511, 512, 513, 40960)   # K3/K4 row counts
 STREAMS, CHUNK, STEPS = 4096, 1600, 30  # benchmarks/serving.py's 100 ms
 STEP_REPS = 15                          # timed steps per streaming path
+# the bound's peaks: H100 SXM at 700 W, NVIDIA's published dense rates
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -98,6 +109,28 @@ def time_paths(paths: dict, reps: int) -> tuple[dict, dict, dict]:
             times, peak)
 
 
+def bound(flops: dict, nbytes: int) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes"): the larger of the FLOPs over
+    the peak of their type (summed over types) and the bytes over the
+    memory rate."""
+    ops_ms = 1e3 * sum(f / PEAK_FLOPS[kind] for kind, f in flops.items())
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def tail_flops(rows: int, spec_rows: int, fb, dct) -> int:
+    """FLOPs of the mel product and the DCT over ``rows`` spectra."""
+    nm = fb.shape[1]
+    return 2 * rows * (spec_rows * nm + (0 if dct is None
+                                         else nm * dct.shape[1]))
+
+
 def twin_of(module, name: str):
     """A context in which ``module.name`` (a kernel wrapper) is its plain
     twin ``module.name_reference``: the twin path of a timing."""
@@ -111,12 +144,14 @@ def main() -> int:
         return 1
     from tpufeat_torch import FBANK80, WHISPER80, MFCC13_HTK, extract
     from tpufeat_torch import framing, matrices, spectrum, streaming
-    from tpufeat_torch.kernels import _build, signal, staged
+    from tpufeat_torch.experiments import RUNNERS
+    from tpufeat_torch.kernels import _build, anatomy, signal, staged
     from tpufeat_torch.reference import cpu
 
     counters = (("signal_features", signal, "launches"),
                 ("dft_mel_log_dct", staged, "dft_mel_log_dct_launches"),
-                ("mel_log_dct", staged, "mel_log_dct_launches"))
+                ("mel_log_dct", staged, "mel_log_dct_launches"),
+                ("anatomy_features", anatomy, "launches"))
     path_launches = {name: 0 for name, _, _ in counters}
 
     def reset_counts() -> None:
@@ -147,8 +182,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build every kernel from the checkout's sources (one nvcc call: the
-    # three kernels share one source file)
+    # 2. build every kernel from the checkout's sources (one nvcc call over
+    # csrc/*.cu: signal_features.cu holds K1-K4, anatomy.cu K5a-h)
     built = _build.load(str(_build.CSRC))
     how = "ran" if built.build_seconds else "reused an earlier build"
     print(f"build: {built.path.name} in {built.build_seconds:.2f} s "
@@ -169,6 +204,12 @@ def main() -> int:
             print(f"  {kernel} for {name}: {smem} B dynamic shared memory "
                   f"per block, {blocks} blocks per SM")
             check(blocks >= 1, f"{kernel} for {name} fits no block on an SM")
+    for dft, mel in (("bf16x3", "bf16x3"), ("f32", "f32"), ("bf16x3", "f32"),
+                     ("f32", "bf16x3")):
+        smem, blocks = anatomy.resources(dft, mel)
+        print(f"  anatomy kernel, {dft} DFT and {mel} mel: {smem} B dynamic "
+              f"shared memory per block, {blocks} blocks per SM")
+        check(blocks >= 1, f"anatomy {dft}/{mel} fits no block on an SM")
 
     # 3. signal kernel vs plain twin, both on the card
     tf = signal.TILE_FRAMES
@@ -309,11 +350,19 @@ def main() -> int:
               f"{BATCH} x {SECONDS} s (RTFx {audio / (ms[name] / 1e3):.0f}), "
               f"runs {['%.3f' % t for t in times[name]]}, "
               f"peak memory {peak[name] / 2**20:.0f} MiB [{card}]")
+    k1_flops, k1_bytes = 0, 0
+    for buf, frames, cfg in bufs:
+        cs, fb, dct = signal._device_constants(cfg, buf.device)
+        rows = buf.shape[0] * frames
+        k1_flops += 2 * rows * cfg.frame_length * cs.shape[1] + tail_flops(
+            rows, fb.shape[0], fb, dct)
+        k1_bytes += nbytes(buf, cs, fb, dct) + 4 * rows * cfg.feature_dim
     del bufs
     kernel_rows = {"signal_features": dict(
         source="tpufeat_torch/csrc/signal_features.cu",
         replaces="tpufeat/pallas/fused.py:669", max_abs_err=main_err,
-        ms=ms["kernel_only"], plain_ms=ms["twin_only"])}
+        ms=ms["kernel_only"], plain_ms=ms["twin_only"],
+        bound=bound({"f32": k1_flops}, k1_bytes))}
 
     # 6. the staged kernels (K3, K4) vs their twins, both on the card
     staged_variants = {
@@ -398,12 +447,22 @@ def main() -> int:
         print(f"{kernel} vs twin at the main path's shapes: "
               f"max_abs_err={err:.3e} scaled={rel:.3e}")
         check(rel <= TOL_KERNEL, f"main-path {kernel} vs twin {rel:.3e}")
+        rows, width = inputs[kernel].shape
+        if kernel == "dft_mel_log_dct":
+            cs, fb, dct = staged._dft_constants(cfg, got.device)
+            flops = 2 * rows * width * cs.shape[1] + tail_flops(
+                rows, fb.shape[0], fb, dct)
+        else:
+            cs, (fb, dct) = None, staged._tail_constants(cfg, got.device)
+            flops = tail_flops(rows, width, fb, dct)
         kernel_rows[kernel] = dict(
             source="tpufeat_torch/csrc/signal_features.cu",
             replaces=("tpufeat/pallas/fused.py:353"
                       if kernel == "dft_mel_log_dct"
                       else "tpufeat/pallas/fused.py:336"),
-            max_abs_err=err)
+            max_abs_err=err, bound=bound(
+                {"f32": flops},
+                nbytes(inputs[kernel], cs, fb, dct, got)))
         del got, want
 
     def staged_path(kernel, twin):
@@ -574,6 +633,90 @@ def main() -> int:
               f"{100 * ms[name] / budget_ms:.2f} % of the {budget_ms:.0f} ms "
               f"real-time budget, runs {['%.3f' % t for t in times[name]]}, "
               f"peak memory {peak[name] / 2**20:.0f} MiB [{card}]")
+    del paths, xs, chunks
+
+    # 9. the anatomy family (K5a-h): each runner's every mode at its
+    # script's shape through anatomy_features, then each mode against its
+    # plain twin, both timed in turns, beside its bound. The tolerances are
+    # tpufeat_torch.experiments._common's (the CPU and card tests use the
+    # same ones)
+    from tpufeat_torch.experiments import _common, phase_anatomy
+    twin = anatomy.anatomy_features_reference
+    for runner in RUNNERS:
+        mod = importlib.import_module(f"tpufeat_torch.experiments.{runner}")
+        inp = mod.inputs("cuda")
+        reset_counts()
+        outs = {mode: _common.call(inp, spec)()
+                for mode, spec in mod.MODES.items()}
+        torch.cuda.synchronize()
+        read_counts(f"{runner}, every mode", {"anatomy_features":
+                                              len(mod.MODES)})
+        for mode, spec in mod.MODES.items():
+            dft, mel, tail = spec
+            got = outs.pop(mode)
+            want = _common.call(inp, spec, twin)()
+            torch.cuda.synchronize()
+            B, R, _ = inp.main.shape
+            check(got.shape == (B, R * len(inp.consts.table), _common.NM),
+                  f"{runner} {mode} shape {tuple(got.shape)}")
+            flip = _common.flip_tolerance(inp, dft, want, tail) \
+                if _common.lossy(mel, tail) else None
+            m = None if flip or tail in ("nolog", "dftonly") else twin(
+                inp.main, inp.bnd, inp.consts, dft, mel, "nolog")
+            err, checked, masked = _common.compare(
+                got, want, tail, m, flip, f"anatomy {runner} {mode}")
+            del got, want, m
+            ms, _, _ = time_paths({"kernel": _common.call(inp, spec),
+                                   "plain": _common.call(inp, spec, twin)},
+                                  REPS)
+            flops, moved = anatomy.work(inp.main, inp.bnd, inp.consts, dft,
+                                        mel, tail)
+            b_ms, b_by = bound(flops, moved)
+            same = f" (the function of {mod.SAME[mode]})" \
+                if mode in mod.SAME else ""
+            print(f"anatomy {runner} {mode}{same}: {dft} DFT, "
+                  f"{mel or 'no'} mel, {tail}; kernel {ms['kernel']:.3f} ms, "
+                  f"plain {ms['plain']:.3f} ms, bound {b_ms:.3f} ms "
+                  f"({b_by}, {100 * b_ms / ms['kernel']:.1f} % of it); "
+                  f"max_abs_err={err:.3e} checked={checked:.3e}"
+                  f"{'' if flip is None else f' (one-flip bound {flip:.3e})'}"
+                  f" masked={masked} [{card}]", flush=True)
+            if (runner, mode) == ("phase_anatomy", "full"):
+                kernel_rows["anatomy_features"] = dict(
+                    source="tpufeat_torch/csrc/anatomy.cu",
+                    replaces=", ".join(
+                        f"benchmarks/experiments/{site}" for site in (
+                            "nopad_kernel.py:52", "repack_kernel.py:57",
+                            "phase_kernel.py:85", "phase_anatomy.py:84",
+                            "phase_anatomy2.py:75", "phase_anatomy3.py:83",
+                            "phase_anatomy4.py:82", "phase_anatomy5.py:156")),
+                    max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                    bound=(b_ms, b_by))
+        del inp, outs
+
+    # the pass counts at the scripts' shape, where no z*z can round apart
+    # in the kernel and the twin, held to the pre-log tolerance: dftonly at
+    # every DFT precision, and every mel precision behind an identity DFT
+    # at f32 (z is then the signal, exactly)
+    inp = phase_anatomy.inputs("cuda")
+    eye = anatomy.constants_from_numpy(
+        [[(0, 0, np.eye(_common.NCS, dtype=np.float32))]],
+        (inp.consts.fb_hi, inp.consts.fb_lo, inp.consts.fb_f32), "cuda")
+    for prec in anatomy.PRECISIONS:
+        for what, consts, dft, mel, tail in (
+                ("dftonly", inp.consts, prec, None, "dftonly"),
+                ("identity DFT, mel", eye, "f32", prec, "nolog")):
+            got = anatomy.anatomy_features(inp.main, inp.bnd, consts, dft,
+                                           mel, tail)
+            want = twin(inp.main, inp.bnd, consts, dft, mel, tail)
+            torch.cuda.synchronize()
+            err, checked, _ = _common.compare(
+                got, want, tail, what=f"anatomy passes, {what} at {prec}")
+            print(f"anatomy passes, {what} at {prec}, main "
+                  f"{tuple(inp.main.shape)}: max_abs_err={err:.3e} "
+                  f"scaled={checked:.3e} (limit {_common.TOL_PRE}) [{card}]")
+            del got, want
+    del inp, eye
 
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched no time in the main paths")
@@ -584,7 +727,11 @@ def main() -> int:
          "launches": path_launches[name],
          "max_abs_err": kernel_rows[name]["max_abs_err"],
          "ms": kernel_rows[name]["ms"],
-         "plain_ms": kernel_rows[name]["plain_ms"]}
+         "plain_ms": kernel_rows[name]["plain_ms"],
+         "bound_ms": kernel_rows[name]["bound"][0],
+         "bound_by": kernel_rows[name]["bound"][1],
+         # no single PyTorch call computes any of these fused functions
+         "library_ms": None}
         for name in path_launches]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

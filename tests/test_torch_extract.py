@@ -28,6 +28,7 @@ from tpufeat.reference import cpu as jcpu
 import tpufeat_torch
 from tpufeat_torch import features as tfeat
 from tpufeat_torch.config import from_reference
+from tpufeat_torch.experiments import RUNNERS
 from tpufeat_torch.reference import cpu as tcpu
 
 # the main path's flags; the port computes every matmul_precision in fp32
@@ -69,7 +70,7 @@ def test_extract_matches_tpufeat_and_golden(name, flags):
     jcfg = dataclasses.replace(JPRESETS[name], **flags)
     x = _batch()
     want = jfeat.extract(x, LENGTHS, jcfg)
-    got = tfeat.extract(x, LENGTHS, _port(jcfg))
+    got = tfeat.extract(x, LENGTHS, _port(jcfg), device="cpu")
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     np.testing.assert_array_equal(got.num_frames.numpy(),
                                   np.asarray(want.num_frames))
@@ -88,9 +89,9 @@ def test_every_precision_computes_fp32(name, precision):
     cfg = dataclasses.replace(_port(JPRESETS[name]), **FUSED)
     x = _batch(seed=10)
     want = tfeat.extract(x, LENGTHS, dataclasses.replace(
-        cfg, matmul_precision="highest"))
+        cfg, matmul_precision="highest"), device="cpu")
     got = tfeat.extract(x, LENGTHS, dataclasses.replace(
-        cfg, matmul_precision=precision))
+        cfg, matmul_precision=precision), device="cpu")
     torch.testing.assert_close(got.features, want.features, rtol=0, atol=0)
 
 
@@ -100,7 +101,7 @@ def test_every_precision_computes_fp32(name, precision):
 def test_other_presets_match_golden(name, flags):
     x = _batch(seed=1)
     cfg = dataclasses.replace(_port(JPRESETS[name]), **flags)
-    _assert_golden(tfeat.extract(x, LENGTHS, cfg), x, LENGTHS,
+    _assert_golden(tfeat.extract(x, LENGTHS, cfg, device="cpu"), x, LENGTHS,
                    JPRESETS[name])
 
 
@@ -119,7 +120,8 @@ def test_kernel_corners_match_golden(variant, flags):
     jcfg = dataclasses.replace(JPRESETS["mfcc13"], **variant)
     x = _batch(seed=2)
     cfg = dataclasses.replace(_port(jcfg), **flags)
-    _assert_golden(tfeat.extract(x, LENGTHS, cfg), x, LENGTHS, jcfg)
+    _assert_golden(tfeat.extract(x, LENGTHS, cfg, device="cpu"), x, LENGTHS,
+                   jcfg)
 
 
 @pytest.mark.parametrize("name", sorted(set(JPRESETS) - {"pncc13"}))
@@ -139,8 +141,8 @@ def test_golden_copy_refuses_pncc():
 def test_padding_is_inert():
     cfg = dataclasses.replace(_port(JPRESETS["whisper80"]), **FUSED)
     x = _batch(seed=3)
-    alone = tfeat.extract(x[1, :LENGTHS[1]], cfg=cfg)
-    batch = tfeat.extract(x, LENGTHS, cfg)
+    alone = tfeat.extract(x[1, :LENGTHS[1]], cfg=cfg, device="cpu")
+    batch = tfeat.extract(x, LENGTHS, cfg, device="cpu")
     nf = int(alone.num_frames)
     torch.testing.assert_close(batch.features[1, :nf], alone.features,
                                rtol=0, atol=0)
@@ -162,23 +164,24 @@ def test_input_promotion_and_squeeze():
     cfg = _port(JPRESETS["mfcc13"])
     x = _batch(seed=5)[0]
     pcm = np.round(x * 20000).astype(np.int16)
-    a = tfeat.extract(pcm, cfg=cfg)
-    b = tfeat.extract(pcm.astype(np.float32) / 32768.0, cfg=cfg)
+    a = tfeat.extract(pcm, cfg=cfg, device="cpu")
+    b = tfeat.extract(pcm.astype(np.float32) / 32768.0, cfg=cfg, device="cpu")
     torch.testing.assert_close(a.features, b.features, rtol=0, atol=0)
     assert a.features.dim() == 2 and a.num_frames.dim() == 0
-    f64 = tfeat.extract(x.astype(np.float64), cfg=cfg)
+    f64 = tfeat.extract(x.astype(np.float64), cfg=cfg, device="cpu")
     assert f64.features.dtype == torch.float64
     fused = dataclasses.replace(cfg, **FUSED)
-    assert tfeat.extract(x.astype(np.float64), cfg=fused).features.dtype \
-        == torch.float32
+    assert tfeat.extract(x.astype(np.float64), cfg=fused,
+                         device="cpu").features.dtype == torch.float32
     bf16 = dataclasses.replace(cfg, out_dtype="bfloat16")
-    assert tfeat.extract(x, cfg=bf16).features.dtype == torch.bfloat16
+    assert tfeat.extract(x, cfg=bf16, device="cpu").features.dtype \
+        == torch.bfloat16
 
 
 def test_tensor_input_stays_where_it_lives():
     cfg = _port(JPRESETS["mfcc13"])
     x = torch.from_numpy(_batch(seed=6)[:2])
-    res = tfeat.extract(x, cfg=cfg)
+    res = tfeat.extract(x, cfg=cfg, device="cpu")
     assert res.features.device == x.device
     torch.testing.assert_close(tfeat.extract(x, cfg=cfg, device="cpu")
                                .features, res.features, rtol=0, atol=0)
@@ -193,7 +196,7 @@ def test_stage_api_matches_tpufeat(name, stage):
     jcfg = JPRESETS[name]
     x = _batch(seed=7)
     want, wmask = getattr(jfeat, stage)(x, LENGTHS, jcfg)
-    got, mask = getattr(tfeat, stage)(x, LENGTHS, _port(jcfg))
+    got, mask = getattr(tfeat, stage)(x, LENGTHS, _port(jcfg), device="cpu")
     np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
     valid = mask.numpy()
     want, got = np.asarray(want)[valid], got.numpy()[valid]
@@ -227,7 +230,7 @@ def test_staged_routes_match_tpufeat(name, route):
                                **STAGED[route])
     x = _batch(seed=12)
     want = jfeat.extract(x, LENGTHS, jcfg)
-    got = tfeat.extract(x, LENGTHS, _port(jcfg))
+    got = tfeat.extract(x, LENGTHS, _port(jcfg), device="cpu")
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     _assert_close_scaled(got, want)
 
@@ -247,7 +250,7 @@ def test_use_energy_matches_tpufeat_and_golden(variant, flags):
     want = jfeat.extract(x, LENGTHS, dataclasses.replace(
         jcfg, **{**flags, "matmul_precision": "highest"}))
     got = tfeat.extract(x, LENGTHS, dataclasses.replace(_port(jcfg),
-                                                        **flags))
+                                                        **flags), device="cpu")
     assert got.features.shape == (3, 148, jcfg.feature_dim)
     _assert_close_scaled(got, want)
     _assert_golden(got, x, LENGTHS, jcfg)
@@ -263,7 +266,7 @@ def test_use_energy_matches_tpufeat_and_golden(variant, flags):
 def test_unported_configs_raise(change):
     cfg = dataclasses.replace(_port(JPRESETS["mfcc13"]), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfeat.extract(_batch(seed=8)[:1, :4000], cfg=cfg)
+        tfeat.extract(_batch(seed=8)[:1, :4000], cfg=cfg, device="cpu")
 
 
 def test_wav_roundtrip_matches_tpufeat(tmp_path):
@@ -278,12 +281,15 @@ def test_wav_roundtrip_matches_tpufeat(tmp_path):
 
 
 def test_import_leaves_jax_and_tpufeat_out():
+    runners = ", ".join(f"tpufeat_torch.experiments.{name}"
+                        for name in RUNNERS)
     code = ("import sys, tpufeat_torch, tpufeat_torch.features, "
             "tpufeat_torch.kernels.signal, tpufeat_torch.kernels.staged, "
+            "tpufeat_torch.kernels.anatomy, "
             "tpufeat_torch.streaming, tpufeat_torch.profile_stream, "
-            "tpufeat_torch.reference.cpu; "
+            f"tpufeat_torch.reference.cpu, {runners}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'tpufeat')]; "
+            "('jax', 'jaxlib', 'tpufeat', 'benchmarks')]; "
             "assert not bad, bad; "
             "from tpufeat_torch.kernels import _build; "
             "assert _build.load.cache_info().currsize == 0")

@@ -47,7 +47,7 @@ def stream_extract(sig, cfg, chunk_sizes, batch=False):
     """Feed ``sig`` through StreamingFrontend.process with the given chunk
     sizes and concatenate the valid frames."""
     x = sig if batch else sig[None]
-    fe = streaming.StreamingFrontend(cfg, batch_size=x.shape[0])
+    fe = streaming.StreamingFrontend(cfg, batch_size=x.shape[0], device="cpu")
     outs, pos = [], 0
     for c in chunk_sizes:
         chunk = x[:, pos: pos + c]
@@ -70,7 +70,7 @@ def plan(total, size):
 
 
 def one_shot(sig, cfg):
-    return features.extract(sig, cfg=cfg).features.numpy()
+    return features.extract(sig, cfg=cfg, device="cpu").features.numpy()
 
 
 def assert_stream_equal(chunked, one):
@@ -139,18 +139,18 @@ class TestStreamingMechanics:
     def test_scan_driver_matches_oneshot(self):
         sig = make_signal(16000, seed=52)
         chunks = torch.from_numpy(sig.reshape(10, 1, 1600))
-        state = streaming.init_state(1, MFCC13_HTK)
+        state = streaming.init_state(1, MFCC13_HTK, device="cpu")
         _, (feats, mask) = streaming.scan_chunks(state, chunks, MFCC13_HTK)
         got = feats[:, 0][mask[:, 0]].numpy()
         assert_stream_equal(got, one_shot(sig, MFCC13_HTK))
 
     def test_state_checkpoint_roundtrip(self, tmp_path):
         sig = make_signal(6400, seed=53)
-        fe = streaming.StreamingFrontend(MFCC13_HTK)
+        fe = streaming.StreamingFrontend(MFCC13_HTK, device="cpu")
         f1, _ = fe.process(sig[None, :3200])
         path = str(tmp_path / "state.npz")
         streaming.save_state(path, fe.state)
-        fe2 = streaming.StreamingFrontend(MFCC13_HTK)
+        fe2 = streaming.StreamingFrontend(MFCC13_HTK, device="cpu")
         fe2.state = streaming.load_state(path, fe2.state)
         f2, _ = fe2.process(sig[None, 3200:])
         got = torch.cat([f1[0], f2[0]]).numpy()
@@ -173,10 +173,10 @@ class TestStreamingMechanics:
         for other in ([4800, 1600, 1600, 8000], [160] * 40 + [9600],
                       plan(16000, 320)):
             assert_stream_equal(stream_extract(sig, cfg, other), a)
-        es = streaming.extract_scan(sig, cfg, 1600).numpy()
+        es = streaming.extract_scan(sig, cfg, 1600, device="cpu").numpy()
         np.testing.assert_array_equal(es, a)
         chunks = torch.from_numpy(sig.reshape(10, 1, 1600))
-        state = streaming.init_state(1, cfg)
+        state = streaming.init_state(1, cfg, device="cpu")
         _, feats = streaming.make_scan_fn(cfg, 0)(state, chunks)
         np.testing.assert_array_equal(feats[0].numpy(), a)
 
@@ -187,12 +187,13 @@ class TestStreamingMechanics:
         big = stream_extract(sig, cfg, [n])
         small = stream_extract(sig, cfg, plan(n, 3200))
         assert_stream_equal(big, small)
-        es = streaming.extract_scan(sig, cfg, 3200).numpy()
+        es = streaming.extract_scan(sig, cfg, 3200, device="cpu").numpy()
         np.testing.assert_array_equal(es, small)   # same step shapes
 
     def test_extract_scan_matches_oneshot(self):
         sig = make_signal(12007, seed=57)
-        es = streaming.extract_scan(sig, MFCC13_HTK, 1000).numpy()
+        es = streaming.extract_scan(sig, MFCC13_HTK, 1000,
+                                    device="cpu").numpy()
         one = one_shot(sig, MFCC13_HTK)
         assert es.shape == one.shape
         assert_stream_equal(es, one)
@@ -203,8 +204,8 @@ class TestStreamingMechanics:
         outputs agree, and fill and carry are equal."""
         cfg = dataclasses.replace(MFCC13_HTK, **FLAGS[name])
         sig = make_signal(4000, seed=58)
-        st_s = streaming.init_state(1, cfg)
-        st_d = streaming.init_state(1, cfg)
+        st_s = streaming.init_state(1, cfg, device="cpu")
+        st_d = streaming.init_state(1, cfg, device="cpu")
         fill, pos = 0, 0
         for c in (1600, 480, 353, 1567):
             chunk = torch.from_numpy(sig[None, pos: pos + c])
@@ -228,13 +229,14 @@ class TestStreamingMechanics:
             streaming.fill_schedule(0, [480] * 20, MFCC13_HTK)[:-1])
         assert p == 1
         # C=165: period hop/gcd(165, hop) = 32 > max_period
-        state = streaming.init_state(1, MFCC13_HTK)
+        state = streaming.init_state(1, MFCC13_HTK, device="cpu")
         with pytest.raises(ValueError, match="period 32"):
             streaming.scan_chunks_static(state, torch.zeros(60, 1, 165),
                                          MFCC13_HTK)
 
     def test_state_setter_needs_one_shared_fill(self):
-        fe = streaming.StreamingFrontend(MFCC13_HTK, batch_size=2)
+        fe = streaming.StreamingFrontend(MFCC13_HTK, batch_size=2,
+                                         device="cpu")
         s = fe.state
         with pytest.raises(ValueError, match="fills must agree"):
             fe.state = s._replace(fill=torch.tensor([0, 160],
@@ -258,21 +260,23 @@ class TestFrontendResetRows:
         b = 2
         x = (np.random.default_rng(10).standard_normal((b, sum(self.PLAN)))
              * 0.1).astype(np.float32)
-        ref = _run_plan(streaming.StreamingFrontend(MFCC13_HTK, b), x,
-                        self.PLAN)
-        fe = streaming.StreamingFrontend(MFCC13_HTK, b)
+        ref = _run_plan(streaming.StreamingFrontend(MFCC13_HTK, b,
+                                                    device="cpu"),
+                        x, self.PLAN)
+        fe = streaming.StreamingFrontend(MFCC13_HTK, b, device="cpu")
         got = _run_plan(fe, x, self.PLAN, reset_at=1)
         np.testing.assert_array_equal(got[1], ref[1])
         pre = sum(self.PLAN[:2])
         xz = x.copy()
         xz[0, :pre] = 0.0
-        oracle = _run_plan(streaming.StreamingFrontend(MFCC13_HTK, b), xz,
-                           self.PLAN)
+        oracle = _run_plan(streaming.StreamingFrontend(MFCC13_HTK, b,
+                                                       device="cpu"),
+                           xz, self.PLAN)
         f_pre = MFCC13_HTK.num_frames(pre)
         np.testing.assert_array_equal(got[0, f_pre:], oracle[0, f_pre:])
 
     def test_reset_rows_keeps_schedule(self):
-        fe = streaming.StreamingFrontend(MFCC13_HTK, 2)
+        fe = streaming.StreamingFrontend(MFCC13_HTK, 2, device="cpu")
         fe.process((np.random.default_rng(11).standard_normal((2, 1000))
                     * 0.1).astype(np.float32))
         fill = fe._fill
@@ -337,7 +341,8 @@ def test_matches_tpufeat_streaming(name, driver):
         dyn = driver == "dynamic_step"
         want, jst = _drive(jstream, jstream.init_state(2, jcfg), x, jcfg,
                            sizes, dyn)
-        got, st = _drive(streaming, streaming.init_state(2, cfg), x, cfg,
+        got, st = _drive(streaming,
+                         streaming.init_state(2, cfg, device="cpu"), x, cfg,
                          sizes, dyn)
         for leaf, jleaf in zip(st, jst):
             assert leaf.numpy().dtype == np.asarray(jleaf).dtype
@@ -347,11 +352,11 @@ def test_matches_tpufeat_streaming(name, driver):
         _, want = jstream.scan_chunks_static(
             jstream.init_state(2, jcfg), jnp.asarray(chunks), jcfg)
         _, got = streaming.scan_chunks_static(
-            streaming.init_state(2, cfg), torch.from_numpy(chunks.copy()),
-            cfg)
+            streaming.init_state(2, cfg, device="cpu"),
+            torch.from_numpy(chunks.copy()), cfg)
     else:
         want = jstream.extract_scan(x, jcfg, 1600)
-        got = streaming.extract_scan(x, cfg, 1600)
+        got = streaming.extract_scan(x, cfg, 1600, device="cpu")
     want, got = np.asarray(want), np.asarray(got)
     assert got.shape == want.shape
     assert _scaled_err(got, want) <= 1e-5
@@ -367,14 +372,14 @@ def test_state_saved_by_tpufeat_continues_in_the_port(tmp_path):
     f1, _ = jfe.process(x[:, :2000])
     path = str(tmp_path / "jax_state.npz")
     jstream.save_state(path, jfe.state)
-    fe = streaming.StreamingFrontend(cfg, batch_size=2)
+    fe = streaming.StreamingFrontend(cfg, batch_size=2, device="cpu")
     fe.state = streaming.load_state(path, fe.state)
     f2, _ = fe.process(x[:, 2000:])
     got = np.concatenate([np.asarray(f1), f2.numpy()], axis=1)
     want = np.asarray(jfeat.extract(x, cfg=jcfg).features)
     assert _scaled_err(got, want) <= 1e-5
-    fe3 = streaming.StreamingFrontend(cfg, batch_size=2)
-    fe3.state = streaming.state_from_numpy(jfe.state)
+    fe3 = streaming.StreamingFrontend(cfg, batch_size=2, device="cpu")
+    fe3.state = streaming.state_from_numpy(jfe.state, device="cpu")
     assert fe3.state.fill.dtype == torch.int32
     f3, _ = fe3.process(x[:, 2000:])
     torch.testing.assert_close(f3, f2, rtol=0, atol=0)
@@ -382,7 +387,7 @@ def test_state_saved_by_tpufeat_continues_in_the_port(tmp_path):
 
 def test_state_saved_by_the_port_loads_in_tpufeat(tmp_path):
     _, cfg = _cfgs("plain")
-    fe = streaming.StreamingFrontend(cfg, batch_size=2)
+    fe = streaming.StreamingFrontend(cfg, batch_size=2, device="cpu")
     fe.process(_batch(n=1000, seed=62))
     path = str(tmp_path / "torch_state.npz")
     streaming.save_state(path, fe.state)

@@ -216,11 +216,26 @@ def finish_impl(feat: torch.Tensor, mask: torch.Tensor,
     return FeatureResult(feat, mask, nf)
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card, ``"cuda"``.
+    Without a card a default call raises: the CPU is taken only when the
+    caller names it (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("tpufeat_torch computes on the card by default, "
+                           "and torch sees no CUDA device: pass "
+                           "device=\"cpu\" to compute on the CPU")
+    return torch.device("cuda")
+
+
 def placed(signal, device) -> torch.Tensor:
-    """``signal`` as a tensor: numpy goes to ``device`` (default CPU), a
-    tensor stays where it lives and ``device``, if given, must name it."""
+    """``signal`` as a tensor: numpy goes to ``device`` (default the card,
+    :func:`default_device`), a tensor stays where it lives and ``device``,
+    if given, must name it."""
     if not isinstance(signal, torch.Tensor):
-        return torch.as_tensor(np.asarray(signal), device=device or "cpu")
+        return torch.as_tensor(np.asarray(signal),
+                               device=default_device(device))
     want = torch.device(device) if device is not None else signal.device
     if signal.device.type != want.type or \
             want.index not in (None, signal.device.index):
@@ -230,8 +245,8 @@ def placed(signal, device) -> torch.Tensor:
 
 
 def _prep(signal, lengths, device):
-    """Input promotion: numpy goes to ``device`` (default CPU), a tensor
-    stays where it lives. int16 is scaled by 1/32768, float64 stays float64,
+    """Input promotion: numpy goes to ``device`` (default the card), a
+    tensor stays where it lives. int16 is scaled by 1/32768, float64 stays float64,
     anything else becomes float32."""
     x = placed(signal, device)
     if x.dtype == torch.int16:
@@ -259,7 +274,8 @@ def extract(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
         lives).
       lengths: [B] true lengths for padded batches; default = full width.
       cfg: a :class:`FeatureConfig`.
-      device: where numpy input goes, e.g. ``"cuda"``; default CPU.
+      device: where numpy input goes; default ``"cuda"``, and a call
+        without a card raises unless it passes ``device="cpu"``.
 
     Returns a :class:`FeatureResult`; for 1-D input the batch axis is
     squeezed away from ``features``/``mask``/``num_frames``.

@@ -30,8 +30,9 @@ State per stream (:class:`StreamState`):
 
 PyTorch runs eagerly, so the ``make_*_fn`` names of the reference return
 plain cached callables, and the device scan is a Python loop over steps.
-Tensors live on the device the caller chooses (``device="cuda"``); nothing
-moves between devices behind the caller's back. The streaming wrappers
+Tensors live on the device the caller chooses, the card (``"cuda"``)
+unless it passes ``device="cpu"``; nothing moves between devices behind
+the caller's back. The streaming wrappers
 (deltas, CMVN, the pipeline and the pool) are later slices of the port.
 """
 
@@ -97,9 +98,10 @@ def _check_streamable(cfg: FeatureConfig) -> None:
 
 def init_state(batch_size: int = 1, cfg: FeatureConfig = MFCC13_HTK,
                dtype=torch.float32, device=None) -> StreamState:
-    """A fresh state for ``batch_size`` streams on ``device`` (default
-    CPU)."""
+    """A fresh state for ``batch_size`` streams on ``device`` (default the
+    card, ``features.default_device``)."""
     cap = cfg.frame_length - 1
+    device = features.default_device(device)
     return StreamState(
         buf=torch.zeros(batch_size, cap, dtype=dtype, device=device),
         fill=torch.zeros(batch_size, dtype=torch.int32, device=device),
@@ -340,8 +342,8 @@ def extract_scan(signal, cfg: FeatureConfig = MFCC13_HTK,
     (on the CPU, BLAS may round some step shapes differently: about 1e-6).
     Use ``features.extract`` when you just want the fastest one-shot path.
 
-    ``signal``: [N] or [B, N], numpy (sent to ``device``, default CPU) or a
-    tensor (computed where it lives). Returns features [(B,) F, D] with
+    ``signal``: [N] or [B, N], numpy (sent to ``device``, default the card)
+    or a tensor (computed where it lives). Returns features [(B,) F, D] with
     F = cfg.num_frames(N).
     """
     _check_streamable(cfg)
@@ -388,7 +390,7 @@ class StreamingFrontend:
                  device=None):
         _check_streamable(cfg)
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = features.default_device(device)
         self.state = init_state(batch_size, cfg, device=self.device)
 
     @property
@@ -460,9 +462,10 @@ def load_state(path: str, like: StreamState) -> StreamState:
 
 
 def state_from_numpy(state, device=None) -> StreamState:
-    """The port's :class:`StreamState` on ``device`` from any (buf, fill,
-    prev_raw) arrays, e.g. a reference ``StreamState``: each leaf goes
-    is copied through ``np.array``, so its dtype is kept."""
+    """The port's :class:`StreamState` on ``device`` (default the card) from
+    any (buf, fill, prev_raw) arrays, e.g. a reference ``StreamState``: each
+    leaf is copied through ``np.array``, so its dtype is kept."""
+    device = features.default_device(device)
     buf, fill, prev_raw = (torch.from_numpy(np.array(a)).to(device)
                            for a in state)
     return StreamState(buf, fill, prev_raw)
