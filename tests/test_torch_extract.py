@@ -25,13 +25,17 @@ from tpufeat import io as jio
 from tpufeat.config import PRESETS as JPRESETS
 from tpufeat.reference import cpu as jcpu
 
+import _one_pass
 import tpufeat_torch
 from tpufeat_torch import features as tfeat
+from tpufeat_torch import framing
 from tpufeat_torch.config import from_reference
 from tpufeat_torch.experiments import RUNNERS
+from tpufeat_torch.kernels import _tolerance as tolerance, signal
 from tpufeat_torch.reference import cpu as tcpu
 
-# the main path's flags; the port computes every matmul_precision in fp32
+# the main path's flags: bf16x3 runs the tensor-core kernel (its twin here),
+# "highest" the fp32 FFMA kernel
 FUSED = dict(use_pallas=True, gemm_dft=True, fused_framing=True,
              matmul_precision="bf16x3")
 LENGTHS = np.array([24000, 17001, 9001])     # ragged, <= 1.5 s at 16 kHz
@@ -85,24 +89,58 @@ def test_extract_matches_tpufeat_and_golden(name, flags):
 
 @pytest.mark.parametrize("precision", ["bf16x3", "default"])
 @pytest.mark.parametrize("name", ["mfcc13", "whisper80"])
-def test_every_precision_computes_fp32(name, precision):
-    cfg = dataclasses.replace(_port(JPRESETS[name]), **FUSED)
+def test_precision_mapping(name, precision):
+    """bf16x3 is the JAX package's bf16x3 (Pallas interpret mode), within
+    1e-4 of max(1, |want|); default is one bf16 pass per product, held to
+    the numpy one-pass oracle (tests/_one_pass.py) within the flips the
+    two sum orders allow (tolerance.twin_tolerance). The CPU interpreter
+    computes the JAX package's "default" in f32, so it is no oracle."""
+    jcfg = dataclasses.replace(JPRESETS[name], **dict(
+        FUSED, matmul_precision=precision))
+    cfg = _port(jcfg)
     x = _batch(seed=10)
-    want = tfeat.extract(x, LENGTHS, dataclasses.replace(
-        cfg, matmul_precision="highest"), device="cpu")
-    got = tfeat.extract(x, LENGTHS, dataclasses.replace(
-        cfg, matmul_precision=precision), device="cpu")
-    torch.testing.assert_close(got.features, want.features, rtol=0, atol=0)
+    got = tfeat.extract(x, LENGTHS, cfg, device="cpu")
+    if precision == "bf16x3":
+        _assert_close_scaled(got, jfeat.extract(x, LENGTHS, jcfg))
+        return
+    xt = torch.from_numpy(x)
+    if cfg.preemphasis and not cfg.kaldi_mode:
+        xt = framing.preemphasize(xt, cfg.preemphasis)
+    buf, mask = framing.framing_buffer(xt, torch.from_numpy(LENGTHS), cfg)
+    F = got.features.shape[1]
+    frames = _one_pass.frames_of(buf.numpy(), F, cfg)
+    want = torch.from_numpy(_one_pass.features(frames, cfg))
+    raw = signal.signal_features(buf.contiguous(), F, cfg)
+    tolerance.compare_to_twin(raw, want, torch.from_numpy(frames), cfg,
+                           what=name)
+    if cfg.log == "whisper":
+        want = tfeat.whisper_normalize(want, mask)
+    valid = got.mask.numpy()
+    tol = tolerance.twin_tolerance(want, torch.from_numpy(frames), cfg).numpy()
+    assert (np.abs(got.features.numpy() - want.numpy()) <= tol)[valid].all()
 
 
 @pytest.mark.parametrize("flags", [{}, FUSED, dict(gemm_dft=True)],
                          ids=["plain", "fused", "plain_gemm"])
 @pytest.mark.parametrize("name", ["fbank80", "whisper128", "gfcc13"])
 def test_other_presets_match_golden(name, flags):
+    """At "highest", whose contract is the golden budget: bf16x3 misses it
+    several times over on fbank80's DC band after pre-emphasis, in the JAX
+    package too
+    (test_bf16x3_other_presets_match_tpufeat holds it there)."""
     x = _batch(seed=1)
-    cfg = dataclasses.replace(_port(JPRESETS[name]), **flags)
+    cfg = dataclasses.replace(_port(JPRESETS[name]),
+                              **dict(flags, matmul_precision="highest"))
     _assert_golden(tfeat.extract(x, LENGTHS, cfg, device="cpu"), x, LENGTHS,
                    JPRESETS[name])
+
+
+@pytest.mark.parametrize("name", ["fbank80", "whisper128", "gfcc13"])
+def test_bf16x3_other_presets_match_tpufeat(name):
+    jcfg = dataclasses.replace(JPRESETS[name], **FUSED)
+    x = _batch(seed=1)
+    got = tfeat.extract(x, LENGTHS, _port(jcfg), device="cpu")
+    _assert_close_scaled(got, jfeat.extract(x, LENGTHS, jcfg))
 
 
 @pytest.mark.parametrize("variant", [
@@ -244,11 +282,11 @@ def test_staged_routes_match_tpufeat(name, route):
     dict(use_energy=True, n_mfcc=0, n_mels=40),
 ], ids=["mfcc", "kaldi_mfcc", "fbank"])
 def test_use_energy_matches_tpufeat_and_golden(variant, flags):
-    """MFCC replaces c0 with the log frame energy; fbank prepends it."""
+    """MFCC replaces c0 with the log frame energy; fbank prepends it. Both
+    packages at the flags' precision."""
     jcfg = dataclasses.replace(JPRESETS["mfcc13"], **variant)
     x = _batch(seed=13)
-    want = jfeat.extract(x, LENGTHS, dataclasses.replace(
-        jcfg, **{**flags, "matmul_precision": "highest"}))
+    want = jfeat.extract(x, LENGTHS, dataclasses.replace(jcfg, **flags))
     got = tfeat.extract(x, LENGTHS, dataclasses.replace(_port(jcfg),
                                                         **flags), device="cpu")
     assert got.features.shape == (3, 148, jcfg.feature_dim)
@@ -287,6 +325,7 @@ def test_import_leaves_jax_and_tpufeat_out():
             "tpufeat_torch.kernels.signal, tpufeat_torch.kernels.staged, "
             "tpufeat_torch.kernels.anatomy, "
             "tpufeat_torch.streaming, tpufeat_torch.profile_stream, "
+            "tpufeat_torch.kernels._tolerance, "
             f"tpufeat_torch.reference.cpu, {runners}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpufeat', 'benchmarks')]; "

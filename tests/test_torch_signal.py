@@ -21,7 +21,7 @@ from tpufeat.config import MFCC13_HTK as J_MFCC13, WHISPER80 as J_WHISPER80
 from tpufeat.pallas import fused
 
 from tpufeat_torch.config import from_reference
-from tpufeat_torch.kernels import signal
+from tpufeat_torch.kernels import _tolerance as tolerance, signal
 
 CFGS = {
     "mfcc13": J_MFCC13,
@@ -104,3 +104,264 @@ def test_wrapper_rejects_zero_frames_and_spectrogram_configs():
     spec = from_reference(dataclasses.asdict(JConfig(n_mels=0, n_mfcc=0)))
     with pytest.raises(ValueError, match="n_mels"):
         signal.signal_features(buf, 4, spec)
+
+
+# ---------------------------------------------------------------------------
+# bf16x3 and default: the twin of the tensor-core kernel
+# ---------------------------------------------------------------------------
+# bf16x3 is the same function in both packages (three bf16 products at every
+# product, exact in f32, summed in f32), so the twin is held to the Pallas
+# kernel at 1e-4 relative to max(1, |want|), and to the float64 golden at
+# 5e-4 scaled, as tests/test_kernel_v4.py holds the JAX kernel. Not 1e-4
+# abs: hi + lo keeps 16-17 bits of each operand, so where the two sum z in
+# another order the dropped residual of z*z's split moves by up to 2^-17 of
+# the term, and lifter 22's factor of 12 takes that to 1.2e-4 abs (9e-6
+# scaled) on the magnitude config. The CPU interpreter computes
+# Precision.DEFAULT in f32, so it is no oracle for "default": the one-pass
+# twin is held to the golden at 0.1 (tests/test_kernel_v4.py's bound) and to
+# a numpy one-pass computation (tests/_one_pass.py) within the flips the two
+# sum orders allow (tolerance.twin_tolerance).
+
+import math  # noqa: E402
+
+import _one_pass  # noqa: E402
+from conftest import make_signal  # noqa: E402
+from tpufeat import features as jfeatures  # noqa: E402
+from tpufeat.reference import cpu as jcpu  # noqa: E402
+from tpufeat_torch import features  # noqa: E402
+
+FUSED = dict(use_pallas=True, gemm_dft=True, fused_framing=True)
+
+
+def _port(jcfg, **flags):
+    return dataclasses.replace(from_reference(dataclasses.asdict(jcfg)),
+                               **flags)
+
+
+@pytest.mark.parametrize("n_frames,layout", [(127, "auto"), (128, "auto"),
+                                             (129, "auto"), (129, "v4")])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_bf16x3_twin_matches_pallas_kernel(name, n_frames, layout):
+    jcfg = dataclasses.replace(CFGS[name], matmul_precision="bf16x3")
+    buf = _buf(jcfg, n_frames, seed=3)
+    want = np.asarray(fused.signal_features(jnp.asarray(buf), n_frames,
+                                            jcfg, layout=layout))
+    got = signal.signal_features_reference(torch.from_numpy(buf), n_frames,
+                                           _port(jcfg))
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * max(
+        1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", ["mfcc13", "whisper80", "kaldi_fold",
+                                  "magnitude_lifter"])
+def test_bf16x3_extract_matches_golden(name):
+    jcfg = CFGS[name]
+    sig = make_signal(16000, seed=10)
+    res = features.extract(sig, cfg=_port(jcfg, matmul_precision="bf16x3",
+                                          **FUSED), device="cpu")
+    gold = jcpu.extract(sig.astype(np.float64), jcfg)
+    err = np.abs(res.features.numpy() - gold).max() / max(
+        1.0, np.abs(gold).max())
+    assert err < 5e-4
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_default_twin_matches_golden_and_one_pass_oracle(name):
+    jcfg = CFGS[name]
+    cfg = _port(jcfg, matmul_precision="default")
+    sig = make_signal(8000, seed=18)
+    res = features.extract(sig, cfg=dataclasses.replace(cfg, **FUSED),
+                           device="cpu")
+    gold = jcpu.extract(sig.astype(np.float64), jcfg)
+    if name in ("mfcc13", "whisper80"):       # the main path's presets
+        assert np.abs(res.features.numpy() - gold).max() < 0.1
+    buf = _buf(jcfg, 70, seed=4)
+    frames = _one_pass.frames_of(buf, 70, cfg)
+    want = torch.from_numpy(_one_pass.features(frames, cfg))
+    got = signal.signal_features_reference(torch.from_numpy(buf), 70, cfg)
+    tolerance.compare_to_twin(got, want, torch.from_numpy(frames), cfg,
+                           what=name)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("name", sorted(CFGS) + ["whisper128", "mel160"])
+def test_mma_constants_emulate_the_twin(name, precision):
+    """The tensor-core kernel's data flow on its packed constants
+    (signal.mma_constants: pair-ordered, padded, split), emulated with f32
+    products: the twin's features within its tolerance. Checks the host
+    side of the kernel where no card is."""
+    base = {"whisper128": J_WHISPER80, "mel160": J_MFCC13}.get(name)
+    base = base or CFGS[name]
+    cfg = _port(base, matmul_precision=precision)
+    if name in ("whisper128", "mel160"):
+        cfg = dataclasses.replace(cfg, n_mels=int(name[-3:]))
+    n_passes = signal.passes(cfg)
+    cs_hi, cs_lo, fb_hi, fb_lo, dct_hi, dct_lo = signal.mma_constants(cfg)
+    fl, nc, nm = cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels
+    assert cs_hi.shape == (-(-fl // signal.MMA_DEPTH) * signal.MMA_DEPTH,
+                           -(-nc // signal.MMA_COLS) * signal.MMA_COLS)
+    assert fb_hi.shape == (cs_hi.shape[1], -(-nm // 8) * 8)
+    buf = torch.from_numpy(_buf(base, 70, seed=5))
+    fr = torch.from_numpy(_one_pass.frames_of(buf.numpy(), 70, cfg))
+    x = torch.zeros(*fr.shape[:-1], cs_hi.shape[0])
+    x[..., :fl] = fr
+
+    def prod(a, hi, lo):
+        ah, al = (t.float() for t in signal.split_bf16(a))
+        out = ah @ hi.float()
+        if n_passes == 3:
+            out = out + ah @ lo.float() + al @ hi.float()
+        return out
+
+    z = prod(x, cs_hi, cs_lo)[..., :nc].unflatten(-1, (nc // 2, 2))
+    re, im = z[..., 0], z[..., 1]
+    if cfg.spectrum == "power":
+        spec = torch.stack([re * re, im * im], -1)
+    else:
+        first = torch.zeros_like(re, dtype=torch.bool)
+        first[..., 0] = True
+        spec = torch.stack([
+            torch.where(first, torch.sqrt(re * re),
+                        torch.sqrt(re * re + im * im)),
+            torch.where(first, torch.sqrt(im * im), torch.zeros_like(im))],
+            -1)
+    mel = prod(spec.flatten(-2), fb_hi[:nc], fb_lo[:nc])[..., :nm]
+    got = signal.log_tail(mel, None, cfg)
+    if dct_hi is not None:
+        got = prod(got, dct_hi, dct_lo)
+    want = signal.signal_features_reference(buf, 70, cfg)
+    tolerance.compare_to_twin(got, want, fr, cfg, what=name)
+
+
+def test_split_and_pair_order():
+    """split_bf16 rounds to nearest even as the numpy bit rounding does, and
+    hi + lo keeps 16 bits; pair_order is a permutation with each bin's Re
+    and Im side by side."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(4096)
+                         .astype(np.float32) * 10.0 ** np.arange(-4, 4)
+                         .repeat(512).astype(np.float32))
+    hi, lo = signal.split_bf16(x)
+    np.testing.assert_array_equal(hi.double().numpy(),
+                                  _one_pass.bf16(x.numpy()))
+    rest = (x.double() - hi.double() - lo.double()).abs()
+    assert (rest <= 2.0 ** -16 * x.double().abs()).all()
+    order = signal.pair_order(257)
+    assert sorted(order) == list(range(512))
+    assert list(order[:4]) == [0, 256, 1, 257]
+    assert all(order[2 * k + 1] == order[2 * k] + 256
+               for k in range(1, 256))
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_mel_limit_of_the_tensor_core_kernel(precision):
+    """No precision limits n_mels: past one slab of MMA_MEL_SLAB bands (the
+    tensor-core kernel runs them slab by slab) the twin computes what the
+    JAX package computes ("highest", bf16x3), or the numpy one-pass oracle
+    (default), for MFCCs and for the log-mel."""
+    for n_mels, n_mfcc in ((signal.MMA_MEL_SLAB + 32, 13),
+                           (signal.MMA_MEL_SLAB + 8, 0)):
+        jcfg = dataclasses.replace(J_MFCC13, matmul_precision=precision,
+                                   n_mels=n_mels, n_mfcc=n_mfcc)
+        cfg = _port(jcfg)
+        buf = _buf(jcfg, 40, seed=11)
+        got = signal.signal_features(torch.from_numpy(buf), 40, cfg)
+        assert got.shape == (2, 40, n_mfcc or n_mels)
+        if precision == "default":
+            frames = _one_pass.frames_of(buf, 40, cfg)
+            tolerance.compare_to_twin(
+                got, torch.from_numpy(_one_pass.features(frames, cfg)),
+                torch.from_numpy(frames), cfg, what=f"{n_mels} mels")
+        else:
+            want = np.asarray(fused.signal_features(jnp.asarray(buf), 40,
+                                                    jcfg))
+            assert np.abs(got.numpy() - want).max() <= 1e-4 * max(
+                1.0, np.abs(want).max())
+
+
+def _default_case(n_frames=200):
+    cfg = _port(J_MFCC13, matmul_precision="default")
+    buf = torch.from_numpy(_buf(J_MFCC13, n_frames, seed=12))
+    frames = _one_pass.frames_of(buf.numpy(), n_frames, cfg)
+    return cfg, buf, frames
+
+
+@pytest.mark.parametrize("fault", ["none", "pass_swap", "one_window"])
+def test_default_check_counts_frames(fault):
+    """At default the flip bound is loose, so the check counts frames: a
+    sound one-pass computation in another sum order (the numpy oracle)
+    passes, while the bf16x3 result held as the default one (a pass swap),
+    or one window of MMA_TILE_FRAMES frames moved by half the tolerance,
+    stays inside the bound and fails on the count."""
+    cfg, buf, frames = _default_case()
+    want = signal.signal_features_reference(buf, 200, cfg)
+    fr = torch.from_numpy(frames)
+    if fault == "none":
+        got = torch.from_numpy(_one_pass.features(frames, cfg))
+    elif fault == "pass_swap":
+        got = signal.signal_features_reference(
+            buf, 200, dataclasses.replace(cfg, matmul_precision="bf16x3"))
+    else:
+        tol = tolerance.twin_tolerance(want, fr, cfg)
+        got = want.double().clone()
+        tm = signal.MMA_TILE_FRAMES
+        got[1, 64: 64 + tm] += 0.5 * tol[1, 64: 64 + tm]
+    if fault == "none":
+        agreement = tolerance.compare_to_twin(got, want, fr, cfg)
+        assert agreement.worst_window <= tolerance.FLIP_FRAMES
+        return
+    assert bool(((got.double() - want.double()).abs()
+                 <= tolerance.twin_tolerance(want, fr, cfg)).all())
+    with pytest.raises(AssertionError, match="consecutive frames"):
+        tolerance.compare_to_twin(got, want, fr, cfg)
+
+
+def test_frames_past_windows():
+    """Frames are counted in windows of MMA_TILE_FRAMES rows, the last one
+    partial; a frame counts once however many of its outputs are past."""
+    tm = signal.MMA_TILE_FRAMES
+    err = torch.zeros(2 * tm + 5, 3)
+    err[[0, 1, tm + 3], :] = 1.0
+    err[2 * tm + 1, 0] = err[2 * tm + 4, 2] = 1.0
+    share, window = tolerance.frames_past(err, 0.5)
+    assert share == pytest.approx(5 / (2 * tm + 5))
+    assert window == 2
+    assert tolerance.frames_past(err.reshape(1, -1, 3), 2.0) == (0.0, 0)
+
+
+def test_one_pass_bound_terms():
+    """One bf16 flip of z*z moves a natural log by <= 2^-7 and a log10 by
+    2^-7 / ln 10; with a DCT, a flip of the log-mel adds one bf16 ulp of it
+    through |dct_hi|. The sum-order bound of a log-mel is relative: the
+    same for a frame 1024 times louder."""
+    lm = torch.tensor([[0.75, -3.0, 9.0]])
+    nat = _port(J_MFCC13, n_mels=3, n_mfcc=0)
+    torch.testing.assert_close(tolerance.one_pass_bound(lm, nat),
+                               torch.full((1, 3), 2.0 ** -7,
+                                          dtype=torch.float64))
+    l10 = dataclasses.replace(nat, log="log10")
+    assert tolerance.one_pass_bound(lm, l10).max().item() == pytest.approx(
+        2.0 ** -7 / math.log(10.0))
+    mfcc = dataclasses.replace(nat, n_mfcc=2)
+    ulp = torch.tensor([2.0 ** -8, 2.0 ** -6, 2.0 ** -4],
+                       dtype=torch.float64)
+    dct = signal.split_bf16(torch.tensor(signal.dct_constant(mfcc)))[0]
+    torch.testing.assert_close(tolerance.one_pass_bound(lm, mfcc)[0],
+                               (2.0 ** -7 + ulp) @ dct.double().abs())
+    cfg = _port(J_MFCC13, matmul_precision="bf16x3", n_mfcc=0)
+    loud = torch.from_numpy(_buf(J_MFCC13, 5, batch=1)[0, :2 * 400]
+                            ).reshape(2, 400)
+    quiet = tolerance.sum_order_bound(tolerance.twin_stages(loud, cfg, True), cfg)
+    louder = tolerance.sum_order_bound(
+        tolerance.twin_stages(loud * 1024.0, cfg, True), cfg)
+    torch.testing.assert_close(louder, quiet, rtol=1e-6, atol=0.0)
+
+
+def test_bf16x3_extract_matches_tpufeat_bf16x3():
+    """One call through both packages' fused path at bf16x3, on the CPU."""
+    jcfg = dataclasses.replace(J_MFCC13, matmul_precision="bf16x3", **FUSED)
+    sig = make_signal(12000, seed=19)
+    want = np.asarray(jfeatures.extract(sig, cfg=jcfg).features)
+    got = features.extract(sig, cfg=_port(jcfg), device="cpu").features
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * max(
+        1.0, np.abs(want).max())

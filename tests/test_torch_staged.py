@@ -8,8 +8,13 @@ Tolerances, relative to max(1, |reference|.max()):
 - twin vs the Pallas kernel: <= 1e-5 — the same fp32 math with the sums in
   another order, on broadband inputs (near the 1e-10 log floor the GEMM
   paths differ by ~1e-2, so no input sits there);
-- the staged ``extract`` (bf16x3 flag, fp32 in the port) vs the float64
-  golden: <= 1e-3, the repo's fidelity budget.
+- the staged ``extract`` at "highest" vs the float64 golden: <= 1e-3, the
+  repo's fidelity budget. Not at bf16x3: its 16-bit operands miss the
+  budget several times over on fbank80, whose lowest band sits on the DC
+  bin after pre-emphasis, in the JAX package's bf16x3 too
+  (test_bf16x3_fbank80_misses_the_budget_as_tpufeat_does), so bf16x3 is
+  held to the golden where it meets it (MFCC-13, Whisper-80) and to the
+  JAX package's bf16x3 everywhere.
 """
 
 import dataclasses
@@ -21,12 +26,13 @@ import torch
 
 from tpufeat.config import FeatureConfig as JConfig
 from tpufeat.config import PRESETS as JPRESETS
+from tpufeat import features as jfeatures
 from tpufeat.pallas import fused
 from tpufeat.reference import cpu as jcpu
 
 from tpufeat_torch import features, matrices
 from tpufeat_torch.config import from_reference
-from tpufeat_torch.kernels import signal, staged
+from tpufeat_torch.kernels import _tolerance as tolerance, signal, staged
 
 CFGS = {
     "mfcc13": JPRESETS["mfcc13"],
@@ -115,7 +121,7 @@ def test_spectro_features_matches_pallas(name, gemm_dft):
 def test_staged_extract_matches_golden(name, route):
     jcfg = JPRESETS[name]
     cfg = dataclasses.replace(_port(jcfg), use_pallas=True,
-                              matmul_precision="bf16x3", **route)
+                              matmul_precision="highest", **route)
     lengths = np.array([16000, 9001])
     x = (np.random.default_rng(3).standard_normal((2, 16000)) * 0.1
          ).astype(np.float32)
@@ -211,3 +217,68 @@ def test_staged_dft_matrix_does_not_fold_kaldi():
     np.testing.assert_array_equal(
         signal.cs_constant(cfg, fold_kaldi=False), plain)
     assert not np.array_equal(signal.cs_constant(cfg), plain)
+
+
+# ---------------------------------------------------------------------------
+# K3 at bf16x3 and default: the twin of the tensor-core route
+# ---------------------------------------------------------------------------
+# As in tests/test_torch_signal.py: bf16x3 is the same function in both
+# packages, held at 1e-4 relative to max(1, |want|) (hi + lo keeps 16-17
+# bits, so another sum order moves what the split drops by up to 2^-17 of a
+# term) and to the golden at 5e-4 scaled; "default" against the numpy
+# one-pass oracle within tolerance.twin_tolerance.
+
+import _one_pass  # noqa: E402
+
+
+@pytest.mark.parametrize("rows", [1, 7, 513])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_bf16x3_dft_twin_matches_pallas_kernel(name, rows):
+    jcfg = dataclasses.replace(CFGS[name], matmul_precision="bf16x3")
+    fr = _frames(jcfg, rows, seed=6)
+    want = np.asarray(fused.dft_mel_log_dct(jnp.asarray(fr), jcfg))
+    got = staged.dft_mel_log_dct_reference(torch.from_numpy(fr), _port(jcfg))
+    assert got.shape == want.shape
+    assert _scaled_err(got.numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["mfcc13", "whisper80"])
+def test_bf16x3_staged_extract_matches_golden(name):
+    jcfg = JPRESETS[name]
+    cfg = dataclasses.replace(_port(jcfg), use_pallas=True, gemm_dft=True,
+                              matmul_precision="bf16x3")
+    x = (np.random.default_rng(7).standard_normal((1, 16000)) * 0.1
+         ).astype(np.float32)
+    res = features.extract(x, cfg=cfg, device="cpu")
+    gold = jcpu.extract(x[0].astype(np.float64), jcfg)
+    assert _scaled_err(res.features[0].numpy(), gold) < 5e-4
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_default_dft_twin_matches_one_pass_oracle(name):
+    cfg = dataclasses.replace(_port(CFGS[name]), matmul_precision="default")
+    fr = _frames(CFGS[name], 64, seed=8)
+    want = torch.from_numpy(_one_pass.features(fr, cfg, fold_kaldi=False))
+    got = staged.dft_mel_log_dct_reference(torch.from_numpy(fr), cfg)
+    tolerance.compare_to_twin(got, want, torch.from_numpy(fr), cfg,
+                           fold_kaldi=False, what=name)
+
+
+def test_bf16x3_fbank80_misses_the_budget_as_tpufeat_does():
+    """bf16x3 keeps 16 bits of each operand, and fbank80's lowest band
+    rests on the DC bin, which pre-emphasis all but removes: both packages'
+    bf16x3 miss the 1e-3 golden budget there by the same amount (within 5 %:
+    that band magnifies another sum order too), while "highest" meets it
+    (test_staged_extract_matches_golden)."""
+    jcfg = dataclasses.replace(JPRESETS["fbank80"], use_pallas=True,
+                               gemm_dft=True, matmul_precision="bf16x3")
+    x = (np.random.default_rng(3).standard_normal(16000) * 0.1
+         ).astype(np.float32)
+    gold = jcpu.extract(x.astype(np.float64), JPRESETS["fbank80"])
+    jax_err = _scaled_err(np.asarray(jfeatures.extract(x, cfg=jcfg)
+                                     .features), gold)
+    port_err = _scaled_err(features.extract(x, cfg=_port(jcfg),
+                                            device="cpu").features.numpy(),
+                           gold)
+    assert jax_err > 5e-3 and port_err > 5e-3
+    assert abs(port_err - jax_err) <= 0.05 * jax_err

@@ -5,8 +5,9 @@ so a config converts 1:1 between the two packages (:func:`from_reference`).
 Hashability keys the per-(config, device) constant caches of the port.
 
 ``use_pallas + gemm_dft + fused_framing`` select the hand-written Hopper
-signal kernel (``tpufeat_torch/kernels/signal.py``); every
-``matmul_precision`` value computes in fp32 there (see that module).
+signal kernel (``tpufeat_torch/kernels/signal.py``), and
+``matmul_precision`` which one: fp32 FFMA for "highest", the bf16 tensor
+cores for "bf16x3" and "default" (see that module).
 """
 
 from __future__ import annotations
@@ -131,11 +132,14 @@ class FeatureConfig:
     #                                  (bf16 halves feature bandwidth when
     #                                  feeding a bf16 encoder; compute stays
     #                                  f32 internally)
-    # Matmul precision of the fused kernel. Each value is a fidelity
-    # contract (an upper bound on error vs the f64 golden): "highest" and
-    # "bf16x3" stay inside the 1e-3 budget, "default" is training-only.
-    # The Hopper signal kernel computes all three in fp32 FFMA, which meets
-    # every one of those bounds.
+    # Matmul precision of the fused and staged GEMM kernels, every product
+    # at it as on the TPU. "highest": fp32, the FFMA kernel
+    # (csrc/signal_features.cu), inside the 1e-3 golden budget. "bf16x3":
+    # hi*hi + hi*lo + lo*hi bf16 products, the tensor-core kernel
+    # (csrc/signal_mma.cu), inside the budget for MFCC-13 and Whisper but
+    # not for FBANK80's DC band after pre-emphasis (the TPU's neither).
+    # "default": one bf16 product, the tensor-core kernel, training-only.
+    # The tail kernel (K4) is fp32 at every value.
     matmul_precision: str = "highest"
     use_pallas: bool = False         # run the fused signal kernel
     gemm_dft: bool = False           # DFT as a GEMM against the windowed

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from tpufeat_torch.kernels import _build, signal
+from tpufeat_torch.kernels.signal import split_bf16
 
 PRECISIONS = {"f32": 0, "bf16x1": 1, "bf16x2": 2, "bf16x3": 3}
 TAILS = {"sqlog": 0, "log": 1, "nolog": 2, "dftonly": 3}
@@ -65,14 +66,6 @@ class Constants(NamedTuple):
     fb_hi: torch.Tensor | None     # [NC, NM] bf16
     fb_lo: torch.Tensor | None
     fb_f32: torch.Tensor | None    # [NC, NM] f32
-
-
-def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) bf16 with hi = bf16_rn(x), lo = bf16_rn(x - hi): the TPU
-    scripts' ``astype(bfloat16)`` split, round to nearest even."""
-    x = x.to(torch.float32)
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
 
 
 def _tensor(a) -> torch.Tensor:

@@ -1,12 +1,10 @@
-"""Fused signal -> features: the Hopper kernel's wrapper and its plain twin.
+"""Fused signal -> features: the Hopper kernels' wrapper and their plain twin.
 
 Replaces the TPU kernels of ``tpufeat/pallas/fused.py`` that frame inside
 the kernel — ``signal_features`` -> ``_signal_kernel`` (v4 hop-split layout)
 and ``_signal_features_phase`` -> ``_phase_signal_kernel`` (v5 phase-packed
-layout) — with ONE CUDA kernel, ``tpufeat_torch/csrc/signal_features.cu``.
-The two TPU layouts exist only to fit 128-lane rows; a Hopper block stages a
-contiguous span of the signal in shared memory and reads its overlapping
-frames straight out of it.
+layout). The two TPU layouts exist only to fit 128-lane rows; a Hopper block
+reads its overlapping frames straight out of the signal.
 
 Contract (that of ``fused.signal_features``): ``buf`` [B, M] float32 is the
 framing buffer, frame t covers ``buf[t*hop : t*hop + frame_length]`` and
@@ -14,21 +12,38 @@ reads past M are zeros. The result is [B, n_frames, D] float32, with
 D = n_mfcc (MFCCs) or n_mels (log-mel; log10 for whisper, which the caller
 then normalizes).
 
-What bounds it on an H100: fp32 FLOPs. An estimate from the shapes, not a
-measurement: the dual Whisper-80 + MFCC-13 call at B=128 x 30 s is about
-3.2e11 FLOP against about 0.6 GB moved, so about 4.7 ms at the published
-67 TFLOP/s fp32 peak and about 0.2 ms at 3.35 TB/s (H100 SXM, 700 W). The
-design keeps frames, spectrum and mel in shared memory, so device memory
-sees only the signal and the features, and it register-blocks the DFT
-(8 frames x 8 columns per thread) to keep the FMA pipes fed.
+Precision: ``cfg.matmul_precision`` picks the kernel, as on the TPU
+(``fused.py:87-143``), where every product x @ W of the DFT, the mel and the
+DCT runs at it:
 
-Precision: every ``matmul_precision`` value runs in fp32 FFMA. Each value's
-fidelity contract is an upper bound on error, and fp32 meets all three.
-The tensor-core mappings are later work.
+- ``"highest"``: fp32 FFMA, ``csrc/signal_features.cu``, counted in
+  :data:`launches`. Its contract (1.2e-4 of the float64 golden) is what
+  fp32 is for.
+- ``"bf16x3"``: hi(x)*hi(W) + hi(x)*lo(W) + lo(x)*hi(W) with
+  hi = bf16_rn(x), lo = bf16_rn(x - hi), each product exact in f32 and
+  summed in f32; ``"default"``: hi(x)*hi(W) alone. Both on bf16 tensor
+  cores, ``csrc/signal_mma.cu``, counted in :data:`mma_launches`; the
+  constants split on the host and cached per config and device
+  (:func:`mma_constants`).
 
-Bits: the tile (TILE_FRAMES frames) and the order of every sum are fixed,
-whatever the call's shape, so a frame's features do not depend on where it
-falls in a call.
+The twin (:func:`signal_features_reference`) runs the same products as f32
+matrix products of the bf16-rounded operands (:func:`mm`), TF32 off, so the
+kernel and the twin differ only in the order of their f32 sums; what that
+allows is ``kernels/_tolerance.py``'s.
+
+What bounds them on an H100 (estimates from the shapes; the measured times
+are in PERF.md): the dual Whisper-80 + MFCC-13 call at B=128 x 30 s is about
+3.15e11 FLOP of DFT and mel products against about 0.6 GB moved: 4.7 ms at
+the published 67 TFLOP/s fp32 peak, 0.96 ms for bf16x3's three passes at
+989 TFLOP/s bf16, 0.18 ms at 3.35 TB/s (H100 SXM, 700 W). Both kernels keep
+frames, spectrum and mel on the SM, so device memory sees only the signal,
+the constants and the features.
+
+Bits: each kernel's tile and the order of every sum are fixed, whatever the
+call's shape, so a frame's features do not depend on where it falls in a
+call. The tensor-core kernel's tile spans the whole call's frames
+(MMA_TILE_FRAMES of them, across utterances and streams); it takes any
+n_mels, in slabs of MMA_MEL_SLAB bands.
 
 The staged kernels (``kernels/staged.py``) live in the same library and
 share this module's binding (:func:`lib`), constants and twin body.
@@ -48,8 +63,16 @@ from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels import _build
 
 TILE_FRAMES = 32       # frames per block: TF in csrc/signal_features.cu
-#: kernel launches so far (a plain count; the plain twin never adds to it)
+MMA_TILE_FRAMES = 64   # frames per block: TM in csrc/signal_mma.cu
+MMA_COLS = 128         # DFT columns per chunk: NT
+MMA_DEPTH = 32         # depth of a staged slice: KC
+MMA_MEL_SLAB = 128     # mel bands per pass: SLAB
+#: passes per product of each matmul_precision (0: fp32)
+PASSES = {"highest": 0, "default": 1, "bf16x3": 3}
+#: kernel launches so far, one count per kernel (the twin never adds to
+#: them): the fp32 FFMA kernel, the tensor-core kernel
 launches = 0
+mma_launches = 0
 
 _LOG_KIND = {"none": 0, "natural": 1, "log10": 2, "whisper": 2}
 
@@ -70,6 +93,35 @@ def no_tf32():
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def passes(cfg: FeatureConfig) -> int:
+    """bf16 passes per product at ``cfg.matmul_precision`` (0: fp32)."""
+    return PASSES[cfg.matmul_precision]
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) bf16 with hi = bf16_rn(x), lo = bf16_rn(x - hi): the TPU
+    kernels' ``astype(bfloat16)`` split, round to nearest even."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor, n_passes: int) -> torch.Tensor:
+    """x @ w with ``n_passes`` bf16 passes (:data:`PASSES`): 0 is the fp32
+    product; 1 is hi(x) @ hi(w); 3 adds hi(x) @ lo(w) and lo(x) @ hi(w).
+    The bf16 operands are multiplied as f32, where their products are
+    exact."""
+    if n_passes == 0:
+        return x @ w
+    xh, xl = (t.to(torch.float32) for t in split_bf16(x))
+    wh, wl = (t.to(torch.float32) for t in split_bf16(w))
+    out = xh @ wh
+    if n_passes == 3:
+        out = out + xh @ wl
+        out = out + xl @ wh
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,6 +173,49 @@ def dct_constant(cfg: FeatureConfig) -> np.ndarray | None:
     return _frozen(dct.astype(np.float32))
 
 
+def pair_order(n_bins: int) -> np.ndarray:
+    """The tensor-core kernel's order of the combined DFT columns: pairs
+    (Re_k, Im_k) for k = 1..n_bins-2 after the pair (Re_0, Re_{n_bins-1}),
+    so a bin's two columns meet in one thread of an MMA accumulator."""
+    order = [0, n_bins - 1]
+    for k in range(1, n_bins - 1):
+        order += [k, n_bins - 1 + k]
+    return np.array(order)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def mma_constants(cfg: FeatureConfig, fold_kaldi: bool = True) -> tuple:
+    """The tensor-core kernel's constants, split on the host, as CPU
+    tensors: (cs_hi, cs_lo) bf16 [round_up(frame_length, MMA_DEPTH),
+    round_up(nc, MMA_COLS)] with nc = 2*n_bins - 2 columns in
+    :func:`pair_order`; (fb_hi, fb_lo) bf16 [round_up(nc, MMA_COLS),
+    round_up(n_mels, 8)] with the rows to match (for magnitude: pair 0's
+    rows fb[0] and fb[n_bins-1], pair k's fb[k] and zeros); (dct_hi, dct_lo)
+    float32 with bf16 values [n_mels, n_mfcc], or None. Padding is zeros."""
+    nb, nm, fl = cfg.n_bins, cfg.n_mels, cfg.frame_length
+    nc = 2 * nb - 2
+    order = pair_order(nb)
+    cs = np.zeros((_round_up(fl, MMA_DEPTH), _round_up(nc, MMA_COLS)),
+                  np.float32)
+    cs[:fl, :nc] = cs_constant(cfg, fold_kaldi)[:, order]
+    fb = np.zeros((cs.shape[1], _round_up(nm, 8)), np.float32)
+    if cfg.spectrum == "power":
+        fb[:nc, :nm] = fb_constant(cfg)[order]
+    else:
+        plain = fb_constant(cfg)
+        fb[0, :nm], fb[1, :nm] = plain[0], plain[nb - 1]
+        fb[2:nc:2, :nm] = plain[1:nb - 1]
+    dct = dct_constant(cfg)
+    dct_split = (None, None) if dct is None else tuple(
+        t.to(torch.float32) for t in split_bf16(torch.tensor(dct)))
+    return (*split_bf16(torch.from_numpy(cs)),
+            *split_bf16(torch.from_numpy(fb)), *dct_split)
+
+
 def put(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
     """A cached constant as a tensor on ``device`` (None stays None)."""
     return None if a is None else torch.tensor(a, device=device)
@@ -130,6 +225,13 @@ def put(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
 def _device_constants(cfg: FeatureConfig, device: torch.device):
     return (put(cs_constant(cfg), device), put(fb_constant(cfg), device),
             put(dct_constant(cfg), device))
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_device_constants(cfg: FeatureConfig, fold_kaldi: bool,
+                          device: torch.device) -> tuple:
+    return tuple(None if t is None else t.to(device).contiguous()
+                 for t in mma_constants(cfg, fold_kaldi))
 
 
 def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
@@ -142,6 +244,11 @@ def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
     if buf.shape[0] < 1 or buf.shape[1] < 1 or n_frames < 1:
         raise ValueError(f"need B, M, n_frames >= 1, got "
                          f"{tuple(buf.shape)}, {n_frames}")
+    check_config(cfg)
+
+
+def check_config(cfg: FeatureConfig) -> None:
+    """What both kernels take: a mel path with an even n_fft."""
     if cfg.n_mels <= 0 or cfg.n_fft % 2:
         raise ValueError("the signal kernel needs n_mels > 0 and an even "
                          f"n_fft (got n_mels={cfg.n_mels}, n_fft={cfg.n_fft})")
@@ -152,29 +259,31 @@ def _out_dim(cfg: FeatureConfig) -> int:
 
 
 def log_tail(mel: torch.Tensor, dct: torch.Tensor | None,
-             cfg: FeatureConfig) -> torch.Tensor:
+             cfg: FeatureConfig, n_passes: int = 0) -> torch.Tensor:
     """The twins' shared tail after the mel product: the floored log (or
-    none), then the DCT when the kernel runs it."""
+    none), then the DCT (at ``n_passes``) when the kernel runs it."""
     kind = _LOG_KIND[cfg.log]
     if kind == 1:
         mel = torch.log(torch.clamp(mel, min=cfg.log_floor))
     elif kind == 2:
         mel = torch.log10(torch.clamp(mel, min=cfg.log_floor))
-    return mel if dct is None else mel @ dct
+    return mel if dct is None else mm(mel, dct, n_passes)
 
 
 def dft_tail(frames: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
              dct: torch.Tensor | None, cfg: FeatureConfig) -> torch.Tensor:
-    """The twins' shared body from frames on: frames @ CS -> square (or
-    |X|) -> @ fb -> :func:`log_tail`."""
-    z = frames @ cs
+    """The twins' shared body from frames on, every product at
+    ``cfg.matmul_precision``: frames @ CS -> square (or |X|) -> @ fb ->
+    :func:`log_tail`."""
+    n = passes(cfg)
+    z = mm(frames, cs, n)
     sq = z * z
     if cfg.spectrum == "magnitude":
         nb = cfg.n_bins
         im2 = torch.zeros_like(sq[..., :nb])
         im2[..., 1: nb - 1] = sq[..., nb:]
         sq = torch.sqrt(sq[..., :nb] + im2)
-    return log_tail(sq @ fb, dct, cfg)
+    return log_tail(mm(sq, fb, n), dct, cfg, n)
 
 
 def signal_features_reference(buf: torch.Tensor, n_frames: int,
@@ -199,8 +308,12 @@ def lib(csrc: str) -> ctypes.CDLL:
     for name, args in (
             ("tpufeat_signal_features",
              [i, p, i, ll, i, i, i, p, i, p, i, i, i, i, i, f, p, i, p, p]),
+            ("tpufeat_signal_features_mma",
+             [i, p, i, ll, i, i, i, p, p, i, p, p, i, i, i, f, p, p, i, p, i,
+              p]),
             ("tpufeat_mel_log_dct", [i, p, i, i, p, i, i, f, p, i, p, p]),
             ("tpufeat_signal_resources", [i, i, i, i, out, out]),
+            ("tpufeat_signal_mma_resources", [i, i, out, out]),
             ("tpufeat_tail_resources", [i, i, out, out])):
         getattr(so, name).argtypes = args
         getattr(so, name).restype = i
@@ -228,29 +341,64 @@ def query_resources(query, *args) -> tuple[int, int]:
 
 def resources(cfg: FeatureConfig) -> tuple[int, int]:
     """(dynamic shared memory per block in bytes, blocks per SM) of the
-    kernel's launch for ``cfg`` on the current CUDA device."""
+    FFMA kernel's launch for ``cfg`` on the current CUDA device."""
     return query_resources("tpufeat_signal_resources", cfg.hop_length,
                            cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels)
+
+
+def mma_resources(cfg: FeatureConfig) -> tuple[int, int]:
+    """The same for the tensor-core kernel at ``cfg``'s precision (bf16x3's
+    three passes for ``"highest"``), K1 and K3 alike."""
+    return query_resources("tpufeat_signal_mma_resources",
+                           passes(cfg) or 3, cfg.n_mels)
+
+
+def launch_mma(buf: torch.Tensor, n_frames: int, hop: int,
+               cfg: FeatureConfig, fold_kaldi: bool, out: torch.Tensor,
+               what: str) -> None:
+    """Launch the tensor-core kernel over ``buf`` [B, M] (frame t of a row
+    at t*hop) into ``out`` [B * n_frames, D] on the current stream; raises
+    if the launch fails. K1 and K3 (``kernels/staged.py``) both come here."""
+    so = lib(str(_build.CSRC))
+    cs_hi, cs_lo, fb_hi, fb_lo, dct_hi, dct_lo = _mma_device_constants(
+        cfg, fold_kaldi, buf.device)
+    B, M = buf.shape
+    err = so.tpufeat_signal_features_mma(
+        buf.device.index, buf.data_ptr(), B, M, n_frames, hop,
+        cfg.frame_length, cs_hi.data_ptr(), cs_lo.data_ptr(),
+        2 * cfg.n_bins - 2, fb_hi.data_ptr(), fb_lo.data_ptr(), cfg.n_mels,
+        int(cfg.spectrum == "magnitude"), _LOG_KIND[cfg.log], cfg.log_floor,
+        None if dct_hi is None else dct_hi.data_ptr(),
+        None if dct_lo is None else dct_lo.data_ptr(), out.shape[-1],
+        out.data_ptr(), passes(cfg),
+        torch.cuda.current_stream(buf.device).cuda_stream)
+    raise_on(so, err, what)
 
 
 def signal_features(buf: torch.Tensor, n_frames: int,
                     cfg: FeatureConfig) -> torch.Tensor:
     """Fused signal -> features [B, n_frames, D] (see the module docstring).
 
-    A CUDA tensor launches the Hopper kernel on the current stream (the
-    library builds at the first such call) and raises if the launch fails;
-    a CPU tensor runs the plain twin. Nothing falls back."""
-    global launches
+    A CUDA tensor launches the kernel of ``cfg.matmul_precision`` on the
+    current stream (the library builds at the first such call) and raises
+    if the launch fails; a CPU tensor runs the plain twin. Nothing falls
+    back."""
+    global launches, mma_launches
     _check(buf, n_frames, cfg)
     if buf.device.type == "cpu":
         return signal_features_reference(buf, n_frames, cfg)
     if buf.device.type != "cuda":
         raise ValueError(f"no signal kernel for device {buf.device}")
-    so = lib(str(_build.CSRC))
-    cs, fb, dct = _device_constants(cfg, buf.device)
     B, M = buf.shape
     out = torch.empty(B, n_frames, _out_dim(cfg), device=buf.device,
                       dtype=torch.float32)
+    if passes(cfg):
+        launch_mma(buf, n_frames, cfg.hop_length, cfg, True, out,
+                   "tensor-core signal kernel launch")
+        mma_launches += 1
+        return out
+    so = lib(str(_build.CSRC))
+    cs, fb, dct = _device_constants(cfg, buf.device)
     magnitude = cfg.spectrum == "magnitude"
     err = so.tpufeat_signal_features(
         buf.device.index, buf.data_ptr(), B, M, n_frames, cfg.hop_length,

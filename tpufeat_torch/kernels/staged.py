@@ -5,9 +5,10 @@ Replaces the two row-blocked TPU kernels of ``tpufeat/pallas/fused.py``:
 - K3, ``dft_mel_log_dct`` -> ``_full_kernel`` (the staged GEMM kernel):
   conditioned, unwindowed frames [..., frame_length] -> combined Re/Im DFT
   product -> square (or |X| rebuilt) -> folded mel product -> log -> DCT.
-  On Hopper this is the signal kernel itself (``csrc/signal_features.cu``)
-  launched over the rows as ONE buffer with hop = frame_length, and given
-  the DFT matrix without the kaldi fold (its frames arrive conditioned).
+  On Hopper this is the signal kernel itself (``csrc/signal_features.cu``
+  or ``csrc/signal_mma.cu``, by precision) launched over the rows as ONE
+  buffer with hop = frame_length, and given the DFT matrix without the
+  kaldi fold (its frames arrive conditioned).
 - K4, ``mel_log_dct`` -> ``_tail_kernel``: power or magnitude spectrum rows
   [..., n_bins] -> mel product -> log -> DCT, the tail after an rFFT. Its
   CUDA kernel (``mel_log_dct_kernel``, same source) stages 32 rows in
@@ -19,19 +20,23 @@ kernel as XLA's rFFT is outside the Pallas one.
 
 What bounds them on an H100 (from the shapes; the measured times are in
 PERF.md): K3 does the signal kernel's FLOPs per frame (about 4.4e5 for
-MFCC-13 at fl=400) but stages frame_length floats per frame instead of
-hop, so its 32-row tile needs 51 KB of shared memory for rows where the
-signal kernel's hop-160 span needs 21 KB, and one block fits on an SM; at
-1.6 KB in per row it stays FLOP-bound. K4 is load-bound: 1 KB in per row
+MFCC-13 at fl=400, times the passes of its precision) against 1.6 KB in per
+row, so it is operation-bound; K4 is load-bound: 1 KB in per row
 (n_bins=257) for about 1.3e4 FLOP.
 
-Precision: every ``matmul_precision`` value runs in fp32 FFMA, as in the
-signal kernel.
+Precision: K3 runs the signal kernels at ``cfg.matmul_precision``, as the
+TPU runs every product of ``_full_kernel`` at it: ``"highest"`` the fp32
+FFMA kernel (``csrc/signal_features.cu``, counted in
+:data:`dft_mel_log_dct_launches`), ``"bf16x3"`` and ``"default"`` the bf16
+tensor-core kernel (``csrc/signal_mma.cu``, counted in
+:data:`dft_mel_log_dct_mma_launches`), with the twins of
+``kernels/signal.py`` and its tolerances. K4 computes fp32 FFMA at every
+precision, which meets each one's fidelity contract; its twin is fp32.
 
-Bits: both kernels compute each row with a fixed tile (32 rows) and
-fixed-order sums, so a row's features depend neither on R nor on the row's
-place in the call. That keeps every hop-aligned streaming chunk plan
-bit-identical on the card.
+Bits: both routes compute each row with a fixed tile and fixed-order sums,
+so a row's features depend neither on R nor on the row's place in the
+call. That keeps every hop-aligned streaming chunk plan bit-identical on
+the card.
 """
 
 from __future__ import annotations
@@ -45,8 +50,10 @@ from tpufeat_torch import matrices, spectrum
 from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels import _build, signal
 
-#: kernel launches so far, one count per kernel (the twins never add)
+#: kernel launches so far, one count per kernel and route (the twins never
+#: add): K3 on the FFMA kernel, K3 on the tensor-core kernel, K4
 dft_mel_log_dct_launches = 0
+dft_mel_log_dct_mma_launches = 0
 mel_log_dct_launches = 0
 
 _MAX_ROWS = 2**31 - 1            # the kernels index rows with an int
@@ -116,6 +123,7 @@ def _check_dft(frames: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     if cfg.n_fft % 2:
         raise ValueError(f"the staged GEMM kernel needs an even n_fft, got "
                          f"{cfg.n_fft}")
+    signal.check_config(cfg)
     return _rows(frames, cfg.frame_length, "staged GEMM")
 
 
@@ -150,9 +158,10 @@ def dft_mel_log_dct(frames: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     [..., frame_length] -> features [..., D], D = n_mfcc, or n_mels for
     log-mel (log10 for whisper, which the caller then normalizes).
 
-    A CUDA tensor launches the Hopper kernel on the current stream and
-    raises if the launch fails; a CPU tensor runs the plain twin."""
-    global dft_mel_log_dct_launches
+    A CUDA tensor launches the kernel of ``cfg.matmul_precision`` on the
+    current stream and raises if the launch fails; a CPU tensor runs the
+    plain twin."""
+    global dft_mel_log_dct_launches, dft_mel_log_dct_mma_launches
     rows = _check_dft(frames, cfg)
     lead, d = frames.shape[:-1], signal._out_dim(cfg)
     if rows.device.type == "cpu":
@@ -160,10 +169,15 @@ def dft_mel_log_dct(frames: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     out = torch.empty(rows.shape[0], d, device=rows.device,
                       dtype=torch.float32)
     if rows.shape[0]:
-        # the signal kernel's entry point over the buffer [1, R*fl], hop = fl
+        # the signal kernels over the buffer [1, R*fl], hop = fl
+        R, fl = rows.shape
+        if signal.passes(cfg):
+            signal.launch_mma(rows.reshape(1, R * fl), R, fl, cfg, False,
+                              out, "staged GEMM tensor-core kernel launch")
+            dft_mel_log_dct_mma_launches += 1
+            return out.reshape(*lead, d)
         so = signal.lib(str(_build.CSRC))
         cs, fb, dct = _dft_constants(cfg, rows.device)
-        R, fl = rows.shape
         err = so.tpufeat_signal_features(
             rows.device.index, rows.data_ptr(), 1, R * fl, R, fl, fl,
             cs.data_ptr(), cs.shape[1], fb.data_ptr(), fb.shape[0],
@@ -204,8 +218,9 @@ def mel_log_dct(spec: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
 
 def dft_resources(cfg: FeatureConfig) -> tuple[int, int]:
     """(dynamic shared memory per block in bytes, blocks per SM) of K3's
-    launch for ``cfg`` on the current CUDA device: the signal kernel's
-    launch with hop = frame_length."""
+    FFMA launch for ``cfg`` on the current CUDA device: the signal kernel's
+    launch with hop = frame_length (the tensor-core launch is
+    ``signal.mma_resources``, K1's own)."""
     return signal.query_resources(
         "tpufeat_signal_resources", cfg.frame_length, cfg.frame_length,
         2 * cfg.n_bins - 2, cfg.n_mels)
