@@ -5,25 +5,27 @@ port builds and runs its paths on the card.
 
 In order: the card and toolchain; the CUDA build of every kernel (one nvcc
 per source, all at once, with nvcc's -Xptxas -v resource lines and each
-launch's shared memory and blocks per SM); the signal kernels against
-their plain twin on the card at every matmul_precision (the fp32 FFMA
-kernel at "highest", the bf16 tensor-core kernel at "bf16x3" and
-"default", past one 128-band mel slab too) over a grid of configs and at
-the main path's shapes, with the default check's negative control (the
-bf16x3 kernel held as the default one must fail it); the main path —
-batched Whisper-80 + MFCC-13 extraction of B=128 x 30 s of 16 kHz audio
-through ``tpufeat_torch.extract`` with the fused flags at bf16x3 (the
-tensor-core kernel), and again at "highest" (the FFMA kernel) — with its launch counts and its error against the float64
-golden, and the timing of that dual call, kernel path and twin path in
-turns, beside the FFMA kernel on the same batch; the staged GEMM kernel
-(K3, on both signal kernels by precision) and the tail kernel (K4) against
-their twins over a grid of configs and row counts; the staged one-shot
-extraction of the same batch through K3 and through cuFFT + K4, checked and
-timed the same way, the routes compared at "highest"; and the streaming
-front-end at serving size (4096 streams of 100 ms chunks) through
-``StreamingFrontend``, ``extract_scan`` and the dynamic step, checked bit
-for bit across chunk plans, each path held against the same path with its
-kernel replaced by the plain twin on every stream, and timed per step; and
+launch's shared memory and blocks per SM); the tensor-core signal kernel
+against its plain twin on the card at every matmul_precision (six bf16
+passes per product at "highest", three at "bf16x3", one at "default", past
+one 128-band mel slab too) over a grid of configs and at the main path's
+shapes, with the default check's negative control (the bf16x3 kernel held
+as the default one must fail it); the main path — batched Whisper-80 +
+MFCC-13 extraction of B=128 x 30 s of 16 kHz audio through
+``tpufeat_torch.extract`` with the fused flags at bf16x3, and again at
+"highest" (within 1.2e-4 of the float64 golden) — with its launch counts
+and its error against the golden, and the timing of that dual call,
+kernel path and twin path in turns, beside the kernel at the other
+precisions on the same batch; the staged GEMM kernel (K3, the signal
+kernel over rows) and the tail kernel (K4) against their twins at every
+precision over a grid of configs and row counts and at the main path's
+shapes; the staged one-shot extraction of the same batch through K3 and
+through cuFFT + K4, checked and timed the same way, the routes compared
+at "highest"; and the streaming front-end at serving size (4096 streams
+of 100 ms chunks) through ``StreamingFrontend``, ``extract_scan`` and the
+dynamic step, checked bit for bit across chunk plans (at bf16x3 and at
+"highest"), each path held against the same path with its kernel replaced
+by the plain twin on every stream, and timed per step; and
 the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
@@ -56,19 +58,25 @@ import torch
 
 SR = 16000
 BATCH, SECONDS = 128, 30            # the main path's batch (bench.py)
-TOL_KERNEL = 1e-4   # K4 vs twin, relative to max(1, |twin|.max()): fp32
-#                     in both, sums in another order. K1 and K3 are held by
-#                     tolerance.compare_to_twin: the same 1e-4 plus the
+TOL_KERNEL = 1e-4   # K4 vs twin in the streaming run at bf16x3, where its
+#                     spectrum rows are not at hand, relative to max(1,
+#                     |twin|.max()): the same split products, sums in
+#                     another order. Everywhere else K1, K3 and K4 are held
+#                     by tolerance.compare_to_twin: the same 1e-4 plus the
 #                     bound of the f32 sum order (large only over
 #                     near-silent bins) and, at "default", of one bf16 flip
 #                     per rounding, with at most tolerance.FLIP_FRAMES
 #                     frames past 1e-4 in a window of the tile's frames
 TOL_GOLDEN = 1e-3   # features vs the float64 golden, same scaling: the
 #                     repo's fidelity budget
+TOL_HIGHEST = 1.2e-4  # the same at "highest", its contract
 TOL_ROUTE = 1e-4    # one-shot staged routes vs the fused route at
-#                     "highest" (fp32 in each), same scaling
+#                     "highest" (six passes in each), same scaling
 TOL_STREAM = 1e-5   # streaming vs its one-shot counterpart, same scaling
 REPS = 11           # timed runs per path (median)
+LAUNCHES = 10       # calls per timed run of a kernel or a twin alone: its
+#                     time is their mean, so the host's time between two
+#                     launches does not count as the card's
 STREAM_BLOCK = 256  # streams per block of a streaming comparison
 FUSED = dict(use_pallas=True, gemm_dft=True, fused_framing=True,
              matmul_precision="bf16x3")
@@ -105,10 +113,20 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def repeated(fn, n: int):
+    """fn, n times over, keeping none of its results."""
+    def run():
+        for _ in range(n):
+            fn()
+    return run
+
+
 def time_paths(paths: dict, reps: int) -> tuple[dict, dict, dict]:
     """Warm each path once (recording its peak memory), then time ``reps``
-    runs of every path in turns, the order reversed every other round.
-    Returns (median ms, every run's ms, peak bytes) per path."""
+    runs of every path in turns, the order reversed every other round; a
+    path whose name ends in ``_only`` (a kernel or a twin alone) runs
+    LAUNCHES calls per timed run, and its time is their mean. Returns
+    (median ms, every run's ms, peak bytes) per path."""
     peak = {}
     for name, fn in paths.items():
         torch.cuda.synchronize()
@@ -120,7 +138,8 @@ def time_paths(paths: dict, reps: int) -> tuple[dict, dict, dict]:
     for rep in range(reps):
         order = list(paths) if rep % 2 == 0 else list(reversed(paths))
         for name in order:
-            times[name].append(cuda_ms(paths[name]))
+            n = LAUNCHES if name.endswith("_only") else 1
+            times[name].append(cuda_ms(repeated(paths[name], n)) / n)
     return ({name: statistics.median(t) for name, t in times.items()},
             times, peak)
 
@@ -148,10 +167,10 @@ def tail_flops(rows: int, spec_rows: int, fb, dct) -> int:
 
 
 def signal_work(rows: int, cfg, fold_kaldi: bool = True) -> tuple:
-    """(FLOPs by type, constant tensors) of a signal kernel over ``rows``
-    frames at ``cfg``'s precision: fp32 FFMA for "highest"; for bf16x3 and
-    default, its passes of the DFT and mel products on the bf16 tensor
-    cores and of the DCT's FFMA on the split operands."""
+    """(FLOPs by type, constant tensors) of the signal kernel over ``rows``
+    frames at ``cfg``'s precision: its passes of the DFT and mel products on
+    the bf16 tensor cores and of the DCT's FFMA on the pieces; the
+    constants are the pieces it reads."""
     from tpufeat_torch.kernels import signal
     cs, fb, dct = (signal.put(a, "cuda") for a in (
         signal.cs_constant(cfg, fold_kaldi), signal.fb_constant(cfg),
@@ -160,12 +179,21 @@ def signal_work(rows: int, cfg, fold_kaldi: bool = True) -> tuple:
         rows, fb.shape[0], fb, None)
     tail = tail_flops(rows, 0, fb, dct)
     n = signal.passes(cfg)
-    if not n:
-        return {"f32": gemm + tail}, (cs, fb, dct)
-    consts = signal.mma_constants(cfg, fold_kaldi)
-    read = consts if n == 3 else consts[::2]       # default reads no lo
     return ({"bf16": n * gemm, "f32": n * tail},
-            tuple(t for t in read if t is not None))
+            tuple(t for pieces in signal.mma_constants(cfg, fold_kaldi)
+                  if pieces is not None for t in pieces))
+
+
+def tail_work(rows: int, cfg) -> tuple:
+    """(FLOPs by type, constant tensors) of K4 over ``rows`` spectra at
+    ``cfg``'s precision: its passes of the mel product and the DCT on the
+    tensor cores; the constants are fb's and the DCT's packed pieces."""
+    from tpufeat_torch.kernels import signal, staged
+    fb, dct = (signal.put(a, "cuda") for a in (
+        staged.tail_fb_constant(cfg), signal.dct_constant(cfg)))
+    n = signal.passes(cfg)
+    return ({"bf16": n * tail_flops(rows, fb.shape[0], fb, dct)},
+            staged.tail_mma_constants(cfg))
 
 
 def twin_of(module, name: str):
@@ -187,22 +215,29 @@ def main() -> int:
     from tpufeat_torch.kernels import _tolerance as tolerance
     from tpufeat_torch.reference import cpu
 
-    counters = (("signal_features", signal, "launches"),
-                ("signal_features_mma", signal, "mma_launches"),
-                ("dft_mel_log_dct", staged, "dft_mel_log_dct_launches"),
+    counters = (("signal_features_mma", signal, "mma_launches"),
                 ("dft_mel_log_dct_mma", staged,
                  "dft_mel_log_dct_mma_launches"),
                 ("mel_log_dct", staged, "mel_log_dct_launches"),
                 ("anatomy_features", anatomy, "launches"))
     path_launches = {name: 0 for name, _, _ in counters}
+    # the kernels line's rows: the signal kernel's launches (K1 and K3) at
+    # "highest" apart, its six-pass variant having its own bound
+    row_of = {"signal_features_mma": "signal_mma",
+              "dft_mel_log_dct_mma": "signal_mma",
+              "mel_log_dct": "mel_log_dct",
+              "anatomy_features": "anatomy_features"}
+    row_launches = {"signal_mma": 0, "signal_mma_highest": 0,
+                    "mel_log_dct": 0, "anatomy_features": 0}
 
     def reset_counts() -> None:
         for _, mod, attr in counters:
             setattr(mod, attr, 0)
 
-    def read_counts(path: str, want: dict) -> dict:
+    def read_counts(path: str, want: dict, highest: bool = False) -> dict:
         """The counts after a main path, which must launch ``want``'s
-        kernels that many times and no other kernel."""
+        kernels that many times and no other kernel; ``highest``: the path
+        runs at "highest"."""
         got = {name: getattr(mod, attr) for name, mod, attr in counters}
         print(f"launches in {path}: {got}")
         for name in got:
@@ -210,6 +245,10 @@ def main() -> int:
                   f"{path}: {name} launched {got[name]} times, expected "
                   f"{want.get(name, 0)}")
             path_launches[name] += got[name]
+            row = row_of[name]
+            if highest and row == "signal_mma":
+                row = "signal_mma_highest"
+            row_launches[row] += got[name]
         return got
 
     # 1. the card and the toolchain
@@ -225,8 +264,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # 2. build every kernel from the checkout's sources (one nvcc per
-    # csrc/*.cu, all at once: signal_features.cu holds the FFMA K1/K3 and
-    # K4, signal_mma.cu the tensor-core K1/K3, anatomy.cu K5a-h)
+    # csrc/*.cu, all at once: signal_mma.cu holds K1/K3 and K4, anatomy.cu
+    # K5a-h)
     built = _build.load(str(_build.CSRC))
     how = "ran" if built.build_seconds else "reused an earlier build"
     print(f"build: {built.path.name} in {built.build_seconds:.2f} s "
@@ -235,26 +274,25 @@ def main() -> int:
         if "registers" in line or "spill" in line or "smem" in line \
                 or "Compiling entry" in line or ": nvcc " in line:
             print("  ptxas:", line.strip())
-    for cfg in (WHISPER80, MFCC13_HTK):
-        smem, blocks = signal.resources(cfg)
-        print(f"  FFMA signal kernel for {cfg.n_mels}-mel: {smem} B dynamic "
-              f"shared memory per block, {blocks} blocks per SM")
-        for prec in ("bf16x3", "default"):
-            smem, blocks = signal.mma_resources(
-                dataclasses.replace(cfg, matmul_precision=prec))
+    for n_mels in (26, 40, 80, 128):
+        for prec in PRECISIONS:
+            smem, blocks = signal.mma_resources(dataclasses.replace(
+                MFCC13_HTK, n_mels=n_mels, matmul_precision=prec))
             print(f"  tensor-core signal kernel (K1 and K3) for "
-                  f"{cfg.n_mels}-mel at {prec}: {smem} B dynamic shared "
+                  f"{n_mels}-mel at {prec}: {smem} B dynamic shared "
                   f"memory per block, {blocks} blocks per SM")
             check(blocks >= 1, f"tensor-core kernel at {prec} fits no "
                   f"block on an SM")
     for name, cfg in (("mfcc13", MFCC13_HTK), ("fbank80", FBANK80),
                       ("whisper80", WHISPER80)):
-        for kernel, query in (("K3", staged.dft_resources),
-                              ("K4", staged.tail_resources)):
-            smem, blocks = query(cfg)
-            print(f"  {kernel} for {name}: {smem} B dynamic shared memory "
-                  f"per block, {blocks} blocks per SM")
-            check(blocks >= 1, f"{kernel} for {name} fits no block on an SM")
+        for prec in PRECISIONS:
+            smem, blocks, rows, slots, staged_consts = staged.tail_resources(
+                dataclasses.replace(cfg, matmul_precision=prec))
+            print(f"  K4 for {name} at {prec}: {smem} B dynamic shared "
+                  f"memory per block, {blocks} blocks per SM, tiles of "
+                  f"{rows} rows, {slots} in the ring, fragments "
+                  f"{'staged' if staged_consts else 'read in place'}")
+            check(blocks >= 1, f"K4 for {name} fits no block on an SM")
     for dft, mel in (("bf16x3", "bf16x3"), ("f32", "f32"), ("bf16x3", "f32"),
                      ("f32", "bf16x3")):
         smem, blocks = anatomy.resources(dft, mel)
@@ -262,10 +300,11 @@ def main() -> int:
               f"shared memory per block, {blocks} blocks per SM")
         check(blocks >= 1, f"anatomy {dft}/{mel} fits no block on an SM")
 
-    # 3. the signal kernels vs their plain twin, both on the card, at every
+    # 3. the signal kernel vs its plain twin, both on the card, at every
     # precision: the configs and frame counts of
-    # tests/test_torch_cuda_signal.py, around both kernels' tiles
-    tf, tm = signal.TILE_FRAMES, signal.MMA_TILE_FRAMES
+    # tests/test_torch_cuda_signal.py, around the kernel's tile and half
+    tm = signal.MMA_TILE_FRAMES
+    tf = tm // 2
     variants = {
         "whisper80": WHISPER80,
         "whisper128": WHISPER128,
@@ -339,14 +378,16 @@ def main() -> int:
     print(f"main path: whisper80 {tuple(mel.features.shape)} mfcc13 "
           f"{tuple(mfcc.features.shape)}; tensor-core signal kernel "
           f"launches {launches['signal_features_mma']}")
-    # the same dual at "highest": the FFMA kernel on the same batch
+    # the same dual at "highest": the kernel's six-pass variant on the same
+    # batch
     cfg_mel_hi = dataclasses.replace(cfg_mel, **HIGHEST)
     cfg_mfcc_hi = dataclasses.replace(cfg_mfcc, **HIGHEST)
     reset_counts()
     mel_hi = extract(sig, lengths, cfg_mel_hi, device="cuda")
     mfcc_hi = extract(sig, lengths, cfg_mfcc_hi, device="cuda").features
     torch.cuda.synchronize()
-    read_counts("the dual extract (highest)", {"signal_features": 2})
+    read_counts("the dual extract (highest)", {"signal_features_mma": 2},
+                highest=True)
     goldens = {}                        # (base config name, row) -> golden
     for res, cfg, base, prec in (
             (mel, cfg_mel, WHISPER80, "bf16x3"),
@@ -362,9 +403,12 @@ def main() -> int:
                 sig[0].astype(np.float64), base)
         err, rel = scaled_err(feats[0].cpu(),
                               torch.from_numpy(goldens[base.n_mels, 0]))
-        print(f"main path at {prec} row 0 vs float64 golden, "
-              f"{base.n_mels}-mel: max_abs_err={err:.3e} scaled={rel:.3e}")
-        check(rel <= TOL_GOLDEN, f"row 0 vs golden {rel:.3e}")
+        limit = TOL_HIGHEST if prec == "highest" else TOL_GOLDEN
+        print(f"main path at {prec} (tensor-core kernel, "
+              f"{signal.passes(cfg)} bf16 passes) row 0 vs float64 golden, "
+              f"{base.n_mels}-mel: max_abs_err={err:.3e} scaled={rel:.3e} "
+              f"(limit {limit})")
+        check(rel <= limit, f"row 0 at {prec} vs golden {rel:.3e}")
     del mel_hi
 
     ragged = np.array([n, 400_123, 250_000, 160_000, 96_001, 16_000, 3_201,
@@ -400,8 +444,7 @@ def main() -> int:
                      f"{base.n_mels}-mel")
 
     # 5. timing on the card: the dual call, kernel path and twin path in
-    # turns, and the tensor-core kernel at "default" and the FFMA kernel
-    # ("highest") on the same buffers
+    # turns, and the kernel at "default" and "highest" on the same buffers
     x = torch.from_numpy(sig).cuda()
     lx = torch.from_numpy(lengths).cuda()
 
@@ -468,8 +511,8 @@ def main() -> int:
              "kernel_only": kernels, "twin_only": twins,
              "dual_highest": functools.partial(dual, cfg_mel_hi, cfg_mfcc_hi),
              "default_only": functools.partial(kernels, "default"),
-             "ffma_only": functools.partial(kernels, "highest"),
-             "ffma_twin_only": functools.partial(twins, "highest")}
+             "highest_only": functools.partial(kernels, "highest"),
+             "highest_twin_only": functools.partial(twins, "highest")}
     ms, times, peak = time_paths(paths, REPS)
     audio = BATCH * SECONDS
     for name in paths:
@@ -491,18 +534,19 @@ def main() -> int:
         print(f"K1 bound for the dual at {prec}: {k1[prec][0]:.3f} ms "
               f"({k1[prec][1]}; FLOPs {flops}, {moved / 1e9:.3f} GB)")
     del bufs
+    signal_replaces = "tpufeat/pallas/fused.py:669, tpufeat/pallas/" \
+        "fused.py:353"
     kernel_rows = {
-        "signal_features": dict(
-            source="tpufeat_torch/csrc/signal_features.cu",
-            replaces="tpufeat/pallas/fused.py:669",
-            max_abs_err=main_err["highest"], ms=ms["ffma_only"],
-            plain_ms=ms["ffma_twin_only"], bound=k1["highest"]),
         "signal_mma": dict(
             source="tpufeat_torch/csrc/signal_mma.cu",
-            replaces="tpufeat/pallas/fused.py:669, tpufeat/pallas/"
-                     "fused.py:353",
+            replaces=signal_replaces,
             max_abs_err=main_err["bf16x3"], ms=ms["kernel_only"],
-            plain_ms=ms["twin_only"], bound=k1["bf16x3"])}
+            plain_ms=ms["twin_only"], bound=k1["bf16x3"]),
+        "signal_mma_highest": dict(
+            source="tpufeat_torch/csrc/signal_mma.cu",
+            replaces=signal_replaces,
+            max_abs_err=main_err["highest"], ms=ms["highest_only"],
+            plain_ms=ms["highest_twin_only"], bound=k1["highest"])}
 
     # 6. the staged kernels (K3, K4) vs their twins, both on the card
     staged_variants = {
@@ -528,9 +572,10 @@ def main() -> int:
         for rows in ROWS:
             frames = torch.randn(rows, base.frame_length, generator=gen,
                                  device="cuda") * 0.1
-            cases = [("dft_mel_log_dct", prec, frames) for prec in PRECISIONS]
-            cases.append(("mel_log_dct", "highest",
-                          spectrum_rows(frames, base)))
+            spec = spectrum_rows(frames, base)
+            cases = [(kernel, prec, inp) for prec in PRECISIONS
+                     for kernel, inp in (("dft_mel_log_dct", frames),
+                                         ("mel_log_dct", spec))]
             for kernel, prec, inp in cases:
                 cfg = dataclasses.replace(base, matmul_precision=prec)
                 got = getattr(staged, kernel)(inp, cfg)
@@ -538,19 +583,12 @@ def main() -> int:
                 want = getattr(staged, f"{kernel}_reference")(inp, cfg)
                 torch.cuda.synchronize()
                 what = f"{kernel} {name} {prec} R={rows}"
-                seen = ""
-                if kernel == "dft_mel_log_dct":
-                    a = tolerance.compare_to_twin(
-                        got, want, inp, cfg, fold_kaldi=False, what=what)
-                    err, rel = a.max_abs_err, a.scaled
-                    seen = note_flips(f"K3 grid {prec}", a)
-                else:
-                    check(got.shape == want.shape, f"{what} shape")
-                    check(bool(torch.isfinite(got).all()),
-                          f"{what} not finite")
-                    err, rel = scaled_err(got, want)
-                    check(rel <= TOL_KERNEL, f"{what}: {rel:.3e} > "
-                          f"{TOL_KERNEL}")
+                k4 = kernel == "mel_log_dct"
+                a = tolerance.compare_to_twin(
+                    got, want, inp, cfg, fold_kaldi=False, what=what,
+                    spectrum=k4)
+                err, rel = a.max_abs_err, a.scaled
+                seen = note_flips(f"{'K4' if k4 else 'K3'} grid {prec}", a)
                 worst[kernel, prec] = max(worst.get((kernel, prec), 0.0),
                                           rel)
                 print(f"{kernel:15s} vs twin {prec:8s} {name:19s} "
@@ -568,12 +606,12 @@ def main() -> int:
         for prec in ("bf16x3", "highest"):
             c = dataclasses.replace(cfg, matmul_precision=prec)
             counter = "dft_mel_log_dct_mma" if kernel == "dft_mel_log_dct" \
-                and prec != "highest" else kernel
+                else kernel
             reset_counts()
             res = extract(sig, lengths, c, device="cuda")
             torch.cuda.synchronize()
             read_counts(f"staged extract via {kernel} at {prec}",
-                        {counter: 1})
+                        {counter: 1}, highest=prec == "highest")
             check(res.features.shape == mfcc.features.shape, "staged shape")
             check(bool(torch.isfinite(res.features).all()), "staged finite")
             err, rel = scaled_err(
@@ -622,31 +660,34 @@ def main() -> int:
         k3[prec] = bound(work, nbytes(frames_main, *consts, got))
         print(f"K3 bound at {prec}: {k3[prec][0]:.3f} ms ({k3[prec][1]}; "
               f"FLOPs {work})")
-        if prec == "highest":
-            kernel_rows["dft_mel_log_dct"] = dict(
-                source="tpufeat_torch/csrc/signal_features.cu",
-                replaces="tpufeat/pallas/fused.py:353", max_abs_err=err,
-                bound=k3[prec])
-        else:
-            row = kernel_rows["signal_mma"]
-            row["max_abs_err"] = max(row["max_abs_err"], err)
+        row = kernel_rows["signal_mma_highest" if prec == "highest"
+                          else "signal_mma"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
         del got, want
-    cfg = routes["mel_log_dct"]
-    got = staged.mel_log_dct(spec_main, cfg)
-    want = staged.mel_log_dct_reference(spec_main, cfg)
-    torch.cuda.synchronize()
-    err, rel = scaled_err(got, want)
-    print(f"mel_log_dct vs twin at the main path's shapes: "
-          f"max_abs_err={err:.3e} scaled={rel:.3e}")
-    check(rel <= TOL_KERNEL, f"main-path mel_log_dct vs twin {rel:.3e}")
-    fb, dct = staged._tail_constants(cfg, got.device)
-    rows, width = spec_main.shape
-    kernel_rows["mel_log_dct"] = dict(
-        source="tpufeat_torch/csrc/signal_features.cu",
-        replaces="tpufeat/pallas/fused.py:336", max_abs_err=err,
-        bound=bound({"f32": tail_flops(rows, width, fb, dct)},
-                    nbytes(spec_main, fb, dct, got)))
-    del got, want
+    k4 = {}
+    for prec in PRECISIONS:
+        cfg = dataclasses.replace(routes["mel_log_dct"],
+                                  matmul_precision=prec)
+        got = staged.mel_log_dct(spec_main, cfg)
+        want = staged.mel_log_dct_reference(spec_main, cfg)
+        torch.cuda.synchronize()
+        a = tolerance.compare_to_twin(got, want, spec_main, cfg,
+                                      what=f"main-path K4 at {prec}",
+                                      spectrum=True)
+        print(f"mel_log_dct at {prec} vs twin at the main path's shapes: "
+              f"max_abs_err={a.max_abs_err:.3e} scaled={a.scaled:.3e}"
+              f"{note_flips(f'K4 main {prec}', a)}")
+        work, consts = tail_work(spec_main.shape[0], cfg)
+        k4[prec] = bound(work, nbytes(spec_main, *consts, got))
+        print(f"K4 bound at {prec}: {k4[prec][0]:.3f} ms ({k4[prec][1]}; "
+              f"FLOPs {work}, "
+              f"{nbytes(spec_main, *consts, got) / 1e9:.3f} GB)")
+        if prec == "bf16x3":
+            kernel_rows["mel_log_dct"] = dict(
+                source="tpufeat_torch/csrc/signal_mma.cu",
+                replaces="tpufeat/pallas/fused.py:336",
+                max_abs_err=a.max_abs_err, bound=k4[prec])
+        del got, want
 
     def staged_path(kernel, twin, prec="bf16x3"):
         cfg = dataclasses.replace(routes[kernel], matmul_precision=prec)
@@ -657,7 +698,6 @@ def main() -> int:
                 return extract(x, lx, cfg).features
         return run
 
-    k3_hi = dataclasses.replace(routes["dft_mel_log_dct"], **HIGHEST)
     paths = {}
     for kernel, short, inp in (("dft_mel_log_dct", "k3", frames_main),
                                ("mel_log_dct", "k4", spec_main)):
@@ -668,10 +708,15 @@ def main() -> int:
             getattr(staged, kernel), inp, cfg)
         paths[f"{short}_twin_only"] = functools.partial(
             getattr(staged, f"{kernel}_reference"), inp, cfg)
-    paths["k3_ffma_only"] = functools.partial(staged.dft_mel_log_dct,
-                                              frames_main, k3_hi)
-    paths["k3_ffma_twin_only"] = functools.partial(
-        staged.dft_mel_log_dct_reference, frames_main, k3_hi)
+    for prec in ("highest", "default"):
+        for kernel, short, inp in (("dft_mel_log_dct", "k3", frames_main),
+                                   ("mel_log_dct", "k4", spec_main)):
+            cfg = dataclasses.replace(routes[kernel], matmul_precision=prec)
+            paths[f"{short}_{prec}_only"] = functools.partial(
+                getattr(staged, kernel), inp, cfg)
+    paths["k3_highest_twin_only"] = functools.partial(
+        staged.dft_mel_log_dct_reference, frames_main,
+        dataclasses.replace(routes["dft_mel_log_dct"], **HIGHEST))
     ms, times, peak = time_paths(paths, REPS)
     for name in paths:
         print(f"{name:18s}: median {ms[name]:.3f} ms per batch of "
@@ -679,13 +724,18 @@ def main() -> int:
               f"(RTFx {audio / (ms[name] / 1e3):.0f}), "
               f"runs {['%.3f' % t for t in times[name]]}, "
               f"peak memory {peak[name] / 2**20:.0f} MiB [{card}]")
-    kernel_rows["dft_mel_log_dct"].update(ms=ms["k3_ffma_only"],
-                                          plain_ms=ms["k3_ffma_twin_only"])
     kernel_rows["mel_log_dct"].update(ms=ms["k4_only"],
                                       plain_ms=ms["k4_twin_only"])
-    print(f"tensor-core kernel as K3 at bf16x3: {ms['k3_only']:.3f} ms, twin "
-          f"{ms['k3_twin_only']:.3f} ms, bound {k3['bf16x3'][0]:.3f} ms "
-          f"({100 * k3['bf16x3'][0] / ms['k3_only']:.1f} % of it) [{card}]")
+    for prec, name in (("bf16x3", "k3_only"), ("highest", "k3_highest_only"),
+                       ("default", "k3_default_only")):
+        print(f"tensor-core kernel as K3 at {prec}: {ms[name]:.3f} ms, "
+              f"bound {k3[prec][0]:.3f} ms "
+              f"({100 * k3[prec][0] / ms[name]:.1f} % of it) [{card}]")
+    for prec, name in (("bf16x3", "k4_only"), ("highest", "k4_highest_only"),
+                       ("default", "k4_default_only")):
+        print(f"K4 at {prec}: {ms[name]:.3f} ms, bound {k4[prec][0]:.3f} ms "
+              f"({k4[prec][1]}, {100 * k4[prec][0] / ms[name]:.1f} % of it) "
+              f"[{card}]")
     del frames_main, spec_main
 
     # 8. streaming at serving size: STREAMS streams of 100 ms chunks
@@ -749,6 +799,22 @@ def main() -> int:
         row = kernel_rows["mel_log_dct" if kernel == "mel_log_dct"
                           else "signal_mma"]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    # the chunk plans at "highest" (the six-pass variant), bit for bit
+    cfg_s_hi = dataclasses.replace(cfg_s, **HIGHEST)
+    reset_counts()
+    out = frontend_run(cfg_s_hi, [CHUNK] * STEPS)
+    torch.cuda.synchronize()
+    read_counts("StreamingFrontend.process at highest",
+                {"signal_features_mma": STEPS}, highest=True)
+    check(torch.equal(streaming.extract_scan(xs, cfg_s_hi, CHUNK), out),
+          "streaming at highest != extract_scan(..., 1600)")
+    check(torch.equal(frontend_run(cfg_s_hi, [3 * CHUNK] * (STEPS // 3)),
+                      out), "plan [4800] * 10 != plan [1600] * 30 at highest")
+    print(f"streaming at highest S={STREAMS} x {STEPS} steps of {CHUNK}: "
+          f"{tuple(out.shape)} bit-identical to extract_scan(..., {CHUNK}) "
+          f"and to the plan [{3 * CHUNK}] * {STEPS // 3}")
+    del out
 
     fused_run = functools.partial(frontend_run, cfg_s, [CHUNK] * STEPS)
     reset_counts()
@@ -936,15 +1002,10 @@ def main() -> int:
               f"{tolerance.FLIP_FRAMES})")
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched no time in the main paths")
-    # one row per kernel: the tensor-core kernel's launches are those of
-    # both of its routes, K1 and K3
-    row_launches = {
-        "signal_features": path_launches["signal_features"],
-        "signal_mma": path_launches["signal_features_mma"]
-        + path_launches["dft_mel_log_dct_mma"],
-        "dft_mel_log_dct": path_launches["dft_mel_log_dct"],
-        "mel_log_dct": path_launches["mel_log_dct"],
-        "anatomy_features": path_launches["anatomy_features"]}
+    # one row per kernel: the signal kernel's launches are those of both of
+    # its routes, K1 and K3, its six-pass variant ("highest") apart
+    for name, count in row_launches.items():
+        check(count > 0, f"{name} was launched no time in the main paths")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": kernel_rows[name]["source"],

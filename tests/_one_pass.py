@@ -1,12 +1,14 @@
-"""A numpy oracle of the port's signal twin at matmul_precision="default":
-every product x @ W as bf16_rn(x) @ bf16_rn(W), summed in float64, with the
-TPU kernel's order (DFT, square or |X|, mel, floored log, DCT). The bf16
-rounding is done on the float32 bits here, independently of torch.
+"""A numpy oracle of the port's twins at matmul_precision="default": every
+product x @ W as bf16_rn(x) @ bf16_rn(W), summed in float64, with the TPU
+kernels' order (DFT, square or |X|, mel, floored log, DCT) for the signal
+twin and K3 (:func:`features`), and from the mel product on for K4
+(:func:`tail_features`). The bf16 rounding is done on the float32 bits
+here, independently of torch.
 """
 
 import numpy as np
 
-from tpufeat_torch.kernels import signal
+from tpufeat_torch.kernels import signal, staged
 
 
 def bf16(a) -> np.ndarray:
@@ -30,6 +32,17 @@ def features(frames: np.ndarray, cfg, fold_kaldi: bool = True,
         im2[..., 1: nb - 1] = sq[..., nb:]
         sq = np.sqrt(sq[..., :nb] + im2).astype(np.float32)
     mel = (bf16(sq) @ bf16(signal.fb_constant(cfg))).astype(np.float32)
+    return _log_dct(mel, cfg, log_mel)
+
+
+def tail_features(spec: np.ndarray, cfg) -> np.ndarray:
+    """Spectrum rows [..., n_bins] -> [..., D] at one bf16 pass per
+    product: K4's function."""
+    mel = (bf16(spec) @ bf16(staged.tail_fb_constant(cfg))).astype(np.float32)
+    return _log_dct(mel, cfg, False)
+
+
+def _log_dct(mel: np.ndarray, cfg, log_mel: bool) -> np.ndarray:
     if cfg.log in ("natural",):
         mel = np.log(np.maximum(mel, np.float32(cfg.log_floor)))
     elif cfg.log in ("log10", "whisper"):

@@ -11,9 +11,9 @@ Tolerance: kernel vs twin within ``_tolerance.compare_to_twin``: 1e-4
 relative to max(1, |twin|.max()) plus the bound of the f32 sum order
 through the later stages (large only over near-silent bins), plus at
 "default" the bound of one bf16 flip per rounding, with at most
-FLIP_FRAMES frames past 1e-4 in any window of the tile's frames.
-"highest" runs the fp32 FFMA kernel, "bf16x3" and "default" the
-tensor-core kernel.
+FLIP_FRAMES frames past 1e-4 in any window of the tile's frames. Every
+precision runs the tensor-core kernel: six bf16 passes per product at
+"highest", three at "bf16x3", one at "default".
 """
 
 import dataclasses
@@ -47,8 +47,8 @@ CFGS = {
     "mel160": C.FeatureConfig(n_mels=160, n_mfcc=13),
     "mel200_logmel": C.FeatureConfig(n_mels=200, n_mfcc=0),
 }
-TF = signal.TILE_FRAMES
 TM = signal.MMA_TILE_FRAMES
+HALF = TM // 2
 PRECISIONS = ["highest", "bf16x3", "default"]
 
 
@@ -67,10 +67,6 @@ def _buf(cfg, n_frames, batch, device, seed=0):
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def _count(cfg):
-    return signal.mma_launches if signal.passes(cfg) else signal.launches
-
-
 def _frames(buf, n_frames, cfg):
     return framing.frames_from_buffer(buf, n_frames, cfg.frame_length,
                                       cfg.hop_length)
@@ -78,17 +74,16 @@ def _frames(buf, n_frames, cfg):
 
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("n_frames", [1, TF - 1, TF, TF + 1, TM - 1, TM + 1,
-                                      129])
+@pytest.mark.parametrize("n_frames", [1, HALF - 1, HALF, HALF + 1, TM - 1,
+                                      TM + 1, 129])
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_kernel_matches_twin(cuda, name, n_frames, batch, precision):
     cfg = dataclasses.replace(CFGS[name], matmul_precision=precision)
     buf = _buf(cfg, n_frames, batch, cuda)
-    before, other = _count(cfg), signal.launches + signal.mma_launches
+    before = signal.mma_launches
     got = signal.signal_features(buf, n_frames, cfg)
     torch.cuda.synchronize()
-    assert _count(cfg) == before + 1
-    assert signal.launches + signal.mma_launches == other + 1
+    assert signal.mma_launches == before + 1
     want = signal.signal_features_reference(buf, n_frames, cfg)
     torch.cuda.synchronize()
     tolerance.compare_to_twin(got, want, _frames(buf, n_frames, cfg), cfg,
@@ -100,10 +95,9 @@ def test_frame_bits_do_not_depend_on_position(cuda, precision):
     """The fixed tile and K order: a frame computed at another offset in
     another call has the same bits, at every row position of a tile."""
     cfg = dataclasses.replace(C.MFCC13_HTK, matmul_precision=precision)
-    tile = TM if signal.passes(cfg) else TF
     buf = _buf(cfg, 200, 2, cuda, seed=1)
     whole = signal.signal_features(buf, 200, cfg)
-    for shift in range(tile):
+    for shift in range(TM):
         part = signal.signal_features(
             buf[:, shift * cfg.hop_length:].contiguous(), 200 - shift, cfg)
         assert torch.equal(whole[:, shift:], part), shift
@@ -139,7 +133,7 @@ def test_unbuildable_source_raises(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", src)
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     buf = _buf(C.MFCC13_HTK, 4, 1, cuda)
-    before = signal.launches
+    before = signal.mma_launches
     with pytest.raises(RuntimeError, match="nvcc failed"):
         signal.signal_features(buf, 4, C.MFCC13_HTK)
-    assert signal.launches == before
+    assert signal.mma_launches == before

@@ -34,8 +34,8 @@ from tpufeat_torch.experiments import RUNNERS
 from tpufeat_torch.kernels import _tolerance as tolerance, signal
 from tpufeat_torch.reference import cpu as tcpu
 
-# the main path's flags: bf16x3 runs the tensor-core kernel (its twin here),
-# "highest" the fp32 FFMA kernel
+# the main path's flags: bf16x3 runs the tensor-core kernel (its twin here)
+# at three bf16 passes per product, "highest" at six
 FUSED = dict(use_pallas=True, gemm_dft=True, fused_framing=True,
              matmul_precision="bf16x3")
 LENGTHS = np.array([24000, 17001, 9001])     # ragged, <= 1.5 s at 16 kHz

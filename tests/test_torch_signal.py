@@ -5,12 +5,16 @@ the CPU with matmul_precision="highest", in both TPU layouts: n_frames 127
 takes the v4 hop-split body, 128 and 129 the v5 phase-packed body, and
 ``layout="v4"`` pins v4 at 129 (hop 100 is not phase-eligible: always v4).
 
-Tolerance: <= 1e-4 abs on broadband noise — the same fp32 math with a
-different summation order.
+Tolerance: <= 1e-4 abs on broadband noise. The interpreter computes
+"highest" in f32; the twin computes it as the TPU does, six bf16 passes,
+whose products keep all 24 bits of each operand, so the two differ by
+their sums' order and the last bits the split drops (about 1e-6 scaled).
 """
 
 import dataclasses
 
+import hypothesis
+import hypothesis.strategies as st
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,9 +66,9 @@ def test_cpu_tensor_runs_the_twin(name):
     """The wrapper takes the twin for a CPU tensor, and counts no launch."""
     cfg = from_reference(dataclasses.asdict(CFGS[name]))
     buf = torch.from_numpy(_buf(CFGS[name], 40, batch=3, seed=1))
-    before = signal.launches
+    before = signal.mma_launches
     out = signal.signal_features(buf, 40, cfg)
-    assert signal.launches == before
+    assert signal.mma_launches == before
     torch.testing.assert_close(
         out, signal.signal_features_reference(buf, 40, cfg), rtol=0, atol=0)
 
@@ -184,37 +188,43 @@ def test_default_twin_matches_golden_and_one_pass_oracle(name):
                            what=name)
 
 
-@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+def emulate_passes(a: torch.Tensor, w: tuple, n_passes: int) -> torch.Tensor:
+    """a @ W as the tensor-core kernels run it: a split into its pieces
+    (signal.split_pieces) against W's packed pieces ``w``, the products
+    as f32 in signal.PASS_ORDER."""
+    pa = [t.float() for t in signal.split_pieces(a, len(w))]
+    out = 0
+    for i, j in signal.PASS_ORDER[:n_passes]:
+        out = out + pa[i] @ w[j].float()
+    return out
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("name", sorted(CFGS) + ["whisper128", "mel160"])
 def test_mma_constants_emulate_the_twin(name, precision):
     """The tensor-core kernel's data flow on its packed constants
-    (signal.mma_constants: pair-ordered, padded, split), emulated with f32
-    products: the twin's features within its tolerance. Checks the host
-    side of the kernel where no card is."""
+    (signal.mma_constants: pair-ordered, padded, split into the pieces of
+    the precision's passes), emulated with f32 products: the twin's
+    features within its tolerance. Checks the host side of the kernel
+    where no card is."""
     base = {"whisper128": J_WHISPER80, "mel160": J_MFCC13}.get(name)
     base = base or CFGS[name]
     cfg = _port(base, matmul_precision=precision)
     if name in ("whisper128", "mel160"):
         cfg = dataclasses.replace(cfg, n_mels=int(name[-3:]))
     n_passes = signal.passes(cfg)
-    cs_hi, cs_lo, fb_hi, fb_lo, dct_hi, dct_lo = signal.mma_constants(cfg)
+    cs, fb, dct = signal.mma_constants(cfg)
+    assert len(cs) == len(fb) == signal.PIECES[n_passes]
     fl, nc, nm = cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels
-    assert cs_hi.shape == (-(-fl // signal.MMA_DEPTH) * signal.MMA_DEPTH,
+    assert cs[0].shape == (-(-fl // signal.MMA_DEPTH) * signal.MMA_DEPTH,
                            -(-nc // signal.MMA_COLS) * signal.MMA_COLS)
-    assert fb_hi.shape == (cs_hi.shape[1], -(-nm // 8) * 8)
+    assert fb[0].shape == (cs[0].shape[1], -(-nm // 8) * 8)
     buf = torch.from_numpy(_buf(base, 70, seed=5))
     fr = torch.from_numpy(_one_pass.frames_of(buf.numpy(), 70, cfg))
-    x = torch.zeros(*fr.shape[:-1], cs_hi.shape[0])
+    x = torch.zeros(*fr.shape[:-1], cs[0].shape[0])
     x[..., :fl] = fr
 
-    def prod(a, hi, lo):
-        ah, al = (t.float() for t in signal.split_bf16(a))
-        out = ah @ hi.float()
-        if n_passes == 3:
-            out = out + ah @ lo.float() + al @ hi.float()
-        return out
-
-    z = prod(x, cs_hi, cs_lo)[..., :nc].unflatten(-1, (nc // 2, 2))
+    z = emulate_passes(x, cs, n_passes)[..., :nc].unflatten(-1, (nc // 2, 2))
     re, im = z[..., 0], z[..., 1]
     if cfg.spectrum == "power":
         spec = torch.stack([re * re, im * im], -1)
@@ -226,10 +236,11 @@ def test_mma_constants_emulate_the_twin(name, precision):
                         torch.sqrt(re * re + im * im)),
             torch.where(first, torch.sqrt(im * im), torch.zeros_like(im))],
             -1)
-    mel = prod(spec.flatten(-2), fb_hi[:nc], fb_lo[:nc])[..., :nm]
+    mel = emulate_passes(spec.flatten(-2), tuple(t[:nc] for t in fb),
+                         n_passes)[..., :nm]
     got = signal.log_tail(mel, None, cfg)
-    if dct_hi is not None:
-        got = prod(got, dct_hi, dct_lo)
+    if dct is not None:
+        got = emulate_passes(got, dct, n_passes)
     want = signal.signal_features_reference(buf, 70, cfg)
     tolerance.compare_to_twin(got, want, fr, cfg, what=name)
 
@@ -251,6 +262,33 @@ def test_split_and_pair_order():
     assert list(order[:4]) == [0, 256, 1, 257]
     assert all(order[2 * k + 1] == order[2 * k] + 256
                for k in range(1, 256))
+
+
+# f32 of exponent -110 to 127: lo's last bit (2^-23 of x's exponent) is then
+# a bf16 value, past 2^-133 only bf16's subnormals would drop it
+_SPLIT3_RANGE = dict(min_value=2.0 ** -110, max_value=2.0 ** 127,
+                     allow_subnormal=False, width=32)
+
+
+@hypothesis.settings(max_examples=200, deadline=None)
+@hypothesis.given(st.lists(st.floats(**_SPLIT3_RANGE), min_size=1,
+                           max_size=64),
+                  st.lists(st.booleans(), min_size=64, max_size=64))
+def test_split3_bf16_is_exact(values, negative):
+    """split3_bf16: each piece is a bf16 value, and hi + mid + lo is x
+    exactly (in float64) for f32 x in the normal range; each piece is at
+    most half an ulp of the one before."""
+    x = torch.tensor([-v if s else v for v, s in zip(values, negative)],
+                     dtype=torch.float32)
+    hi, mid, lo = signal.split3_bf16(x)
+    for piece in (hi, mid, lo):
+        assert piece.dtype == torch.bfloat16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert torch.equal(torch.from_numpy(_one_pass.bf16(x.numpy())),
+                       hi.double())
+    for big, small in ((hi, mid), (mid, lo)):
+        assert bool((small.double().abs()
+                     <= big.double().abs() * 2.0 ** -8).all())
 
 
 @pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])

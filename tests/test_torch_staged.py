@@ -2,12 +2,16 @@
 
 ``tpufeat.pallas.fused.dft_mel_log_dct`` (K3), ``mel_log_dct`` (K4) and
 ``spectro_features`` run in Pallas interpret mode on the CPU with
-matmul_precision="highest", as ``tests/test_pallas.py`` runs them.
+matmul_precision="highest", as ``tests/test_pallas.py`` runs them, and at
+bf16x3.
 
 Tolerances, relative to max(1, |reference|.max()):
-- twin vs the Pallas kernel: <= 1e-5 — the same fp32 math with the sums in
-  another order, on broadband inputs (near the 1e-10 log floor the GEMM
-  paths differ by ~1e-2, so no input sits there);
+- twin vs the Pallas kernel at "highest": <= 1e-5 — the interpreter's f32
+  against the twin's six bf16 passes (the TPU's form, within about 1e-6 of
+  f32), with the sums in another order, on broadband inputs (near the
+  1e-10 log floor the GEMM paths differ by ~1e-2, so no input sits there);
+- K4's twin vs the Pallas kernel at bf16x3: <= 1e-6 — the same split
+  products in both (an fp32 mel product misses it by 3.6e-6 on MFCC-13);
 - the staged ``extract`` at "highest" vs the float64 golden: <= 1e-3, the
   repo's fidelity budget. Not at bf16x3: its 16-bit operands miss the
   budget several times over on fbank80, whose lowest band sits on the DC
@@ -140,7 +144,8 @@ def test_cpu_tensor_runs_the_twin(kernel):
     width = cfg.frame_length if kernel == "dft_mel_log_dct" else cfg.n_bins
     x = torch.from_numpy(np.abs(_frames(JPRESETS["mfcc13"], 3 * 5, seed=4)
                                 )[:, :width].reshape(3, 5, width).copy())
-    count = f"{kernel}_launches"
+    count = {"dft_mel_log_dct": "dft_mel_log_dct_mma_launches",
+             "mel_log_dct": "mel_log_dct_launches"}[kernel]
     before = getattr(staged, count)
     out = getattr(staged, kernel)(x, cfg)
     assert getattr(staged, count) == before
@@ -282,3 +287,105 @@ def test_bf16x3_fbank80_misses_the_budget_as_tpufeat_does():
                            gold)
     assert jax_err > 5e-3 and port_err > 5e-3
     assert abs(port_err - jax_err) <= 0.05 * jax_err
+
+
+# ---------------------------------------------------------------------------
+# K4 at every precision: the twin of the tensor-core tail kernel
+# ---------------------------------------------------------------------------
+# The TPU's _tail_kernel runs its mel and DCT products through _cdot at the
+# config's precision, so at bf16x3 they are split products, and the twin
+# computes the same ones.
+
+
+@pytest.mark.parametrize("rows", [1, 7, 513])
+@pytest.mark.parametrize("name", ["mfcc13", "whisper80", "fbank80"])
+def test_bf16x3_tail_twin_matches_pallas_kernel(name, rows):
+    jcfg = dataclasses.replace(JPRESETS[name], matmul_precision="bf16x3")
+    spec = _spectrum_rows(jcfg, rows, seed=9)
+    want = np.asarray(fused.mel_log_dct(jnp.asarray(spec), jcfg))
+    got = staged.mel_log_dct_reference(torch.from_numpy(spec), _port(jcfg))
+    assert got.shape == want.shape
+    assert _scaled_err(got.numpy(), want) <= 1e-6
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_default_tail_twin_matches_one_pass_oracle(name):
+    cfg = dataclasses.replace(_port(CFGS[name]), matmul_precision="default")
+    spec = _spectrum_rows(CFGS[name], 64, seed=10)
+    want = torch.from_numpy(_one_pass.tail_features(spec, cfg))
+    got = staged.mel_log_dct_reference(torch.from_numpy(spec), cfg)
+    tolerance.compare_to_twin(got, want, torch.from_numpy(spec), cfg,
+                              what=name, spectrum=True)
+
+
+def _unpack_fragments(frags: torch.Tensor) -> list:
+    """The matrices [16 ks, 8 nt] (one per piece) that the kernel reads out
+    of B fragments, with lane 4 g + t's register r holding rows
+    16 s + 8 r + 2 t (low half) and + 1 (high half) of column 8 j + g, as
+    mma.sync m16n8k16 takes its B operand."""
+    ks, nt, n, _, _ = frags.shape
+    words = frags.numpy().view(np.uint32)
+    out = []
+    for p in range(n):
+        m = np.zeros((16 * ks, 8 * nt), np.uint16)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for r in range(2):
+                w = words[:, :, p, lane, r]
+                m[8 * r + 2 * t::16, g::8] = w & 0xFFFF
+                m[8 * r + 2 * t + 1::16, g::8] = w >> 16
+        out.append(torch.from_numpy(m.view(np.int16)).view(torch.bfloat16))
+    return out
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("name", ["mfcc13", "fbank80", "whisper80",
+                                  "magnitude_lifter", "mel160"])
+def test_tail_fragments_emulate_the_twin(name, precision):
+    """K4's packed constants (staged.tail_mma_constants), read back as the
+    kernel reads them, are the filterbank's and the DCT's pieces, and its
+    data flow on them (rows split into pieces, f32 products in the pass
+    order, the floored log, the log-mel split the same way against the
+    DCT's) gives the twin's features within the twin tolerance. Checks the
+    host side of the kernel where no card is."""
+    jcfg = {"whisper80": JPRESETS["whisper80"],
+            "mel160": dataclasses.replace(JPRESETS["mfcc13"], n_mels=160)
+            }.get(name) or CFGS[name]
+    cfg = dataclasses.replace(_port(jcfg), matmul_precision=precision)
+    frags, dct_frags = staged.tail_mma_constants(cfg)
+    n = signal.PIECES[signal.passes(cfg)]
+    dct = signal.dct_constant(cfg)
+    assert (dct_frags is None) == (dct is None)
+    packed = {}
+    for name, f, w in (("fb", frags, staged.tail_fb_constant(cfg)),
+                       ("dct", dct_frags, dct)):
+        if w is None:
+            continue
+        assert f.dtype == torch.int32
+        assert f.shape == (-(-w.shape[0] // 16), -(-w.shape[1] // 8), n,
+                           32, 2)
+        packed[name] = _unpack_fragments(f)
+        pad = torch.zeros(packed[name][0].shape)
+        pad[:w.shape[0], :w.shape[1]] = torch.tensor(w)
+        for got, want in zip(packed[name], signal.split_pieces(pad, n)):
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    pieces = packed["fb"]
+    spec = torch.from_numpy(_spectrum_rows(jcfg, 70, seed=11))
+    x = torch.zeros(70, pieces[0].shape[0])
+    x[:, :cfg.n_bins] = spec
+    xs = [t.float() for t in signal.split_pieces(x, n)]
+    mel = 0
+    for i, j in signal.PASS_ORDER[:signal.passes(cfg)]:
+        mel = mel + xs[i] @ pieces[j].float()
+    out = signal.log_tail(mel[:, :cfg.n_mels], None, cfg)
+    if dct is not None:
+        lm = torch.zeros(70, packed["dct"][0].shape[0])
+        lm[:, :cfg.n_mels] = out
+        ls = [t.float() for t in signal.split_pieces(lm, n)]
+        out = 0
+        for i, j in signal.PASS_ORDER[:signal.passes(cfg)]:
+            out = out + ls[i] @ packed["dct"][j].float()
+        out = out[:, :dct.shape[1]]
+    want = staged.mel_log_dct_reference(spec, cfg)
+    tolerance.compare_to_twin(out, want, spec, cfg, what=name,
+                              spectrum=True)

@@ -6,8 +6,9 @@ Hashability keys the per-(config, device) constant caches of the port.
 
 ``use_pallas + gemm_dft + fused_framing`` select the hand-written Hopper
 signal kernel (``tpufeat_torch/kernels/signal.py``), and
-``matmul_precision`` which one: fp32 FFMA for "highest", the bf16 tensor
-cores for "bf16x3" and "default" (see that module).
+``matmul_precision`` how many bf16 passes on the tensor cores each of its
+products takes: six for "highest", three for "bf16x3", one for "default"
+(see that module).
 """
 
 from __future__ import annotations
@@ -132,14 +133,15 @@ class FeatureConfig:
     #                                  (bf16 halves feature bandwidth when
     #                                  feeding a bf16 encoder; compute stays
     #                                  f32 internally)
-    # Matmul precision of the fused and staged GEMM kernels, every product
-    # at it as on the TPU. "highest": fp32, the FFMA kernel
-    # (csrc/signal_features.cu), inside the 1e-3 golden budget. "bf16x3":
-    # hi*hi + hi*lo + lo*hi bf16 products, the tensor-core kernel
-    # (csrc/signal_mma.cu), inside the budget for MFCC-13 and Whisper but
-    # not for FBANK80's DC band after pre-emphasis (the TPU's neither).
-    # "default": one bf16 product, the tensor-core kernel, training-only.
-    # The tail kernel (K4) is fp32 at every value.
+    # Matmul precision of the fused, staged GEMM and tail kernels
+    # (csrc/signal_mma.cu), every product at it as on the TPU, as bf16
+    # products of the operands' pieces hi, mid, lo. "highest": six
+    # (hi*hi + hi*mid + mid*hi + hi*lo + mid*mid + lo*hi, XLA's f32
+    # emulation), within about 1e-6 of fp32 and inside the 1e-3 golden
+    # budget. "bf16x3": the first three (hi*hi + hi*lo + lo*hi), inside the
+    # budget for MFCC-13 and Whisper but not for FBANK80's DC band after
+    # pre-emphasis (the TPU's neither). "default": one bf16 product,
+    # training-only.
     matmul_precision: str = "highest"
     use_pallas: bool = False         # run the fused signal kernel
     gemm_dft: bool = False           # DFT as a GEMM against the windowed

@@ -1,14 +1,16 @@
-"""How far a signal kernel (K1, K3) may be from its plain twin, and the
-comparison that holds it there; the CPU tests, the card tests and
+"""How far a tensor-core kernel (K1, K3, K4) may be from its plain twin,
+and the comparison that holds it there; the CPU tests, the card tests and
 ``chip_smoke.py`` use it.
 
-The kernel and the twin (``kernels/signal.py``) compute the same products
-and differ in the order of their f32 sums. What that allows, per output
-(:func:`twin_tolerance`): TOL_TWIN of max(1, |twin|) for what the bounds
-do not model (the log's last ulps), the error bound of that order through
-every later stage (:func:`sum_order_bound`), and at ``"default"``, where a
-bf16 rounding of a value the two sum apart can land one bf16 ulp away, the
-bound of such flips (:func:`one_pass_bound`).
+The kernel and the twin (``kernels/signal.py``, ``kernels/staged.py``)
+compute the same products and differ in the order of their f32 sums. What
+that allows, per output (:func:`twin_tolerance`): TOL_TWIN of max(1,
+|twin|) for what the bounds do not model (the log's last ulps), the error
+bound of that order through every later stage (:func:`sum_order_bound`),
+and at ``"default"``, where a bf16 rounding of a value the two sum apart
+can land one bf16 ulp away, the bound of such flips
+(:func:`one_pass_bound`). K4's inputs are the spectrum rows themselves, so
+its bound starts at the mel sum (:func:`tail_stages`).
 
 The flip bound is loose: a flip of a bf16-rounded log-mel moves all of a
 frame's MFCCs, by up to about 1 abs with lifter 22, and a wrong pass count
@@ -33,6 +35,7 @@ from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels.signal import (
     _LOG_KIND, MMA_TILE_FRAMES, cs_constant, dct_constant, fb_constant,
     log_tail, mm, no_tf32, passes, put, split_bf16)
+from tpufeat_torch.kernels.staged import tail_fb_constant
 
 TOL_TWIN = 1e-4        # kernel vs twin, relative to max(1, |twin|.max())
 FLIP_FRAMES = 8        # at "default": frames past TOL_TWIN per window
@@ -67,37 +70,50 @@ def twin_stages(frames: torch.Tensor, cfg: FeatureConfig,
     return dict(z=z, s=s, spec=spec, fb=fb, mel=spec @ fb)
 
 
+def tail_stages(spec: torch.Tensor, cfg: FeatureConfig) -> dict:
+    """K4's stages on spectrum rows ``spec`` [R, n_bins], float64: the
+    spectrum and the mel (no DFT: both sides split the same rows)."""
+    fb = put(tail_fb_constant(cfg), spec.device).double()
+    spec = spec.double()
+    return dict(spec=spec, fb=fb, mel=spec @ fb)
+
+
 def sum_order_bound(t: dict, cfg: FeatureConfig) -> torch.Tensor:
     """Per-output bound on |kernel - twin| from the order of the f32 sums
     alone, from the twin's stages ``t`` on frames [R, frame_length]
-    (:func:`twin_stages`); [R, D].
+    (:func:`twin_stages`) or spectrum rows (:func:`tail_stages`); [R, D].
 
     Both compute the same products and differ in the order of the f32
     sums. A sum of n terms rounds to within about sqrt(n) 2^-24 of the sum
     of their magnitudes (the probabilistic form of the sum's error bound,
     Higham and Mary 2019; the worst case n 2^-24 is some 35 times looser
     at n = 1200 and no longer tells bf16x3 from one pass). So each side's z
-    (n = passes x frame_length terms, fp32 products counted as one pass) is
-    off by about sqrt(n) 2^-24 S, S = |frames| @ |CS|, and the two by
-    dz = 2 sqrt(n) 2^-24 S: relative to S, not to |z|, which is how a
-    narrow mel band over a near-silent bin gets a large relative error.
-    Then z*z moves by (2|z| + dz) dz (|X| by its two dz), the bf16 split of
-    the spectrum by 2^-16 of it, the mel sum by its own 2 sqrt(n) 2^-24,
-    the log by the mel's move over the smaller of the two mels (over ln 10
-    for log10), and the DCT by the log-mel's moves, its split and its sum,
-    through |dct|. Where the bins are not near-silent this stays below
-    TOL_TWIN."""
-    n = max(passes(cfg), 1)
-    split = 2.0 ** -16 if passes(cfg) else 0.0
+    (n = passes x frame_length terms) is off by about sqrt(n) 2^-24 S,
+    S = |frames| @ |CS|, and the two by dz = 2 sqrt(n) 2^-24 S: relative
+    to S, not to |z|, which is how a narrow mel band over a near-silent bin
+    gets a large relative error. Then z*z moves by (2|z| + dz) dz (|X| by
+    its two dz), and what the split of the spectrum drops by 2^-16 of it
+    at one and three passes (hi + lo keeps 16 bits), 2^-24 at six (hi +
+    mid + lo keeps all of an f32's); the mel sum by its own 2 sqrt(n)
+    2^-24, the log by the mel's move over the smaller of the two mels (over
+    ln 10 for log10), and the DCT by the log-mel's moves, its split and its
+    sum, through |dct|. Where the bins are not near-silent this stays below
+    TOL_TWIN. K4's stages have no z: the spectrum is the input, the same
+    on both sides."""
+    n = passes(cfg)
+    split = 2.0 ** -24 if n == 6 else 2.0 ** -16
     u = 2.0 ** -24
-    dz = 2 * math.sqrt(n * cfg.frame_length) * u * t["s"]
-    if cfg.spectrum == "magnitude":
-        nb = cfg.n_bins
-        dspec = dz[:, :nb].clone()
-        dspec[:, 1: nb - 1] += dz[:, nb:]
+    if "z" in t:
+        dz = 2 * math.sqrt(n * cfg.frame_length) * u * t["s"]
+        if cfg.spectrum == "magnitude":
+            nb = cfg.n_bins
+            dspec = dz[:, :nb].clone()
+            dspec[:, 1: nb - 1] += dz[:, nb:]
+        else:
+            dspec = (2 * t["z"].abs() + dz) * dz
+        dspec = dspec + split * t["spec"]
     else:
-        dspec = (2 * t["z"].abs() + dz) * dz
-    dspec = dspec + split * t["spec"]
+        dspec = torch.zeros_like(t["spec"])
     fb = t["fb"].abs()
     dmel = dspec @ fb + 2 * math.sqrt(n * fb.shape[0]) * u * (t["spec"] @ fb)
     if cfg.log == "none":
@@ -139,19 +155,22 @@ def one_pass_bound(logmel: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     return (moved + ulp) @ weights.to(lm.device)
 
 
-def twin_tolerance(want: torch.Tensor, frames: torch.Tensor,
-                   cfg: FeatureConfig, fold_kaldi: bool = True
-                   ) -> torch.Tensor:
+def twin_tolerance(want: torch.Tensor, inputs: torch.Tensor,
+                   cfg: FeatureConfig, fold_kaldi: bool = True,
+                   spectrum: bool = False) -> torch.Tensor:
     """Elementwise bound on |kernel - twin| for the outputs ``want`` of
-    ``frames`` [R, frame_length]: TOL_TWIN of max(1, |want|), plus
+    ``inputs``: frames [R, frame_length] (K1, K3), or with ``spectrum``
+    K4's spectrum rows [R, n_bins]. TOL_TWIN of max(1, |want|), plus
     :func:`sum_order_bound`, plus at ``"default"`` :func:`one_pass_bound`.
     Chunked over rows."""
     lead = want.shape[:-1]
     want = want.reshape(-1, want.shape[-1])
-    frames = frames.reshape(-1, cfg.frame_length)
+    inputs = inputs.reshape(-1, inputs.shape[-1])
     parts = []
-    for r0 in range(0, frames.shape[0], TWIN_ROWS):
-        t = twin_stages(frames[r0: r0 + TWIN_ROWS], cfg, fold_kaldi)
+    for r0 in range(0, inputs.shape[0], TWIN_ROWS):
+        chunk = inputs[r0: r0 + TWIN_ROWS]
+        t = tail_stages(chunk, cfg) if spectrum else \
+            twin_stages(chunk, cfg, fold_kaldi)
         tol = sum_order_bound(t, cfg)
         if passes(cfg) == 1:
             tol = tol + one_pass_bound(log_tail(t["mel"], None, cfg), cfg)
@@ -172,19 +191,21 @@ def frames_past(err: torch.Tensor, limit: float) -> tuple[float, int]:
 
 
 def compare_to_twin(got: torch.Tensor, want: torch.Tensor,
-                    frames: torch.Tensor, cfg: FeatureConfig,
-                    fold_kaldi: bool = True, what: str = "") -> Agreement:
-    """A kernel's output against its twin's for ``frames``; raises
-    AssertionError past :func:`twin_tolerance`, or at ``"default"`` where a
-    window of MMA_TILE_FRAMES frames holds more than FLIP_FRAMES frames
-    past TOL_TWIN (see the module docstring)."""
+                    inputs: torch.Tensor, cfg: FeatureConfig,
+                    fold_kaldi: bool = True, what: str = "",
+                    spectrum: bool = False) -> Agreement:
+    """A kernel's output against its twin's for ``inputs`` (frames, or
+    with ``spectrum`` K4's spectrum rows); raises AssertionError past
+    :func:`twin_tolerance`, or at ``"default"`` where a window of
+    MMA_TILE_FRAMES rows holds more than FLIP_FRAMES rows past TOL_TWIN
+    (see the module docstring)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
                              f"{tuple(want.shape)}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: not finite")
     err = (got.double() - want.double()).abs()
-    tol = twin_tolerance(want, frames, cfg, fold_kaldi)
+    tol = twin_tolerance(want, inputs, cfg, fold_kaldi, spectrum)
     if not bool((err <= tol).all()):
         worst = (err / tol).max().item()
         raise AssertionError(f"{what}: error up to {worst:.3f} x the "

@@ -1,4 +1,4 @@
-"""Fused signal -> features: the Hopper kernels' wrapper and their plain twin.
+"""Fused signal -> features: the Hopper kernel's wrapper and its plain twin.
 
 Replaces the TPU kernels of ``tpufeat/pallas/fused.py`` that frame inside
 the kernel — ``signal_features`` -> ``_signal_kernel`` (v4 hop-split layout)
@@ -12,38 +12,41 @@ reads past M are zeros. The result is [B, n_frames, D] float32, with
 D = n_mfcc (MFCCs) or n_mels (log-mel; log10 for whisper, which the caller
 then normalizes).
 
-Precision: ``cfg.matmul_precision`` picks the kernel, as on the TPU
-(``fused.py:87-143``), where every product x @ W of the DFT, the mel and the
-DCT runs at it:
+Precision: every product x @ W of the DFT, the mel and the DCT runs at
+``cfg.matmul_precision``, as on the TPU (``fused.py:87-143``), as a sum of
+bf16 products of the operands' pieces hi = bf16_rn(x), mid =
+bf16_rn(x - hi), lo = bf16_rn(x - hi - mid) (:func:`split_pieces`), in the
+order of :data:`PASS_ORDER`, each product exact in f32 and summed in f32:
 
-- ``"highest"``: fp32 FFMA, ``csrc/signal_features.cu``, counted in
-  :data:`launches`. Its contract (1.2e-4 of the float64 golden) is what
-  fp32 is for.
-- ``"bf16x3"``: hi(x)*hi(W) + hi(x)*lo(W) + lo(x)*hi(W) with
-  hi = bf16_rn(x), lo = bf16_rn(x - hi), each product exact in f32 and
-  summed in f32; ``"default"``: hi(x)*hi(W) alone. Both on bf16 tensor
-  cores, ``csrc/signal_mma.cu``, counted in :data:`mma_launches`; the
-  constants split on the host and cached per config and device
-  (:func:`mma_constants`).
+- ``"highest"``: six passes, hi.hi + hi.mid + mid.hi + hi.lo + mid.mid +
+  lo.hi, the form of XLA's f32 emulation that the TPU runs for
+  Precision.HIGHEST (``fused.py:89-91``): within about 1e-6 of fp32, so its
+  contract (1.2e-4 of the float64 golden) holds;
+- ``"bf16x3"``: the first three, hi(x)*hi(W) + hi(x)*lo(W) + lo(x)*hi(W)
+  with lo the two-way split's, which is mid;
+- ``"default"``: hi(x)*hi(W) alone.
+
+All three run on one bf16 tensor-core kernel, ``csrc/signal_mma.cu``,
+counted in :data:`mma_launches`, with the constants split on the host and
+cached per config and device (:func:`mma_constants`).
 
 The twin (:func:`signal_features_reference`) runs the same products as f32
-matrix products of the bf16-rounded operands (:func:`mm`), TF32 off, so the
-kernel and the twin differ only in the order of their f32 sums; what that
-allows is ``kernels/_tolerance.py``'s.
+matrix products of the bf16 pieces (:func:`mm`), TF32 off, so the kernel
+and the twin differ only in the order of their f32 sums; what that allows
+is ``kernels/_tolerance.py``'s.
 
-What bounds them on an H100 (estimates from the shapes; the measured times
+What bounds it on an H100 (estimates from the shapes; the measured times
 are in PERF.md): the dual Whisper-80 + MFCC-13 call at B=128 x 30 s is about
-3.15e11 FLOP of DFT and mel products against about 0.6 GB moved: 4.7 ms at
-the published 67 TFLOP/s fp32 peak, 0.96 ms for bf16x3's three passes at
-989 TFLOP/s bf16, 0.18 ms at 3.35 TB/s (H100 SXM, 700 W). Both kernels keep
-frames, spectrum and mel on the SM, so device memory sees only the signal,
-the constants and the features.
+3.15e11 FLOP of DFT and mel products against about 0.6 GB moved: 1.91 ms
+for "highest"'s six passes at the published 989 TFLOP/s bf16 dense peak,
+0.96 ms for bf16x3's three, 0.18 ms at 3.35 TB/s (H100 SXM, 700 W). The
+kernel keeps frames, spectrum and mel on the SM, so device memory sees only
+the signal, the constants and the features.
 
-Bits: each kernel's tile and the order of every sum are fixed, whatever the
+Bits: the kernel's tile (MMA_TILE_FRAMES frames of the whole call, across
+utterances and streams) and the order of every sum are fixed, whatever the
 call's shape, so a frame's features do not depend on where it falls in a
-call. The tensor-core kernel's tile spans the whole call's frames
-(MMA_TILE_FRAMES of them, across utterances and streams); it takes any
-n_mels, in slabs of MMA_MEL_SLAB bands.
+call. It takes any n_mels, in slabs of MMA_MEL_SLAB bands.
 
 The staged kernels (``kernels/staged.py``) live in the same library and
 share this module's binding (:func:`lib`), constants and twin body.
@@ -62,16 +65,19 @@ from tpufeat_torch import framing, matrices
 from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels import _build
 
-TILE_FRAMES = 32       # frames per block: TF in csrc/signal_features.cu
 MMA_TILE_FRAMES = 64   # frames per block: TM in csrc/signal_mma.cu
 MMA_COLS = 128         # DFT columns per chunk: NT
 MMA_DEPTH = 32         # depth of a staged slice: KC
 MMA_MEL_SLAB = 128     # mel bands per pass: SLAB
-#: passes per product of each matmul_precision (0: fp32)
-PASSES = {"highest": 0, "default": 1, "bf16x3": 3}
-#: kernel launches so far, one count per kernel (the twin never adds to
-#: them): the fp32 FFMA kernel, the tensor-core kernel
-launches = 0
+#: bf16 passes per product of each matmul_precision
+PASSES = {"highest": 6, "bf16x3": 3, "default": 1}
+#: the (x piece, W piece) of each pass, in the order every product sums
+#: them: hi.hi, hi.mid, mid.hi, hi.lo, mid.mid, lo.hi; P passes take the
+#: first P (csrc/signal_mma.cu a_piece, b_piece)
+PASS_ORDER = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+#: pieces per operand at each pass count
+PIECES = {1: 1, 3: 2, 6: 3}
+#: the kernel's launches so far (the twin never adds to them)
 mma_launches = 0
 
 _LOG_KIND = {"none": 0, "natural": 1, "log10": 2, "whisper": 2}
@@ -96,31 +102,46 @@ def no_tf32():
 
 
 def passes(cfg: FeatureConfig) -> int:
-    """bf16 passes per product at ``cfg.matmul_precision`` (0: fp32)."""
+    """bf16 passes per product at ``cfg.matmul_precision``."""
     return PASSES[cfg.matmul_precision]
 
 
+def split_pieces(x: torch.Tensor, n: int) -> tuple[torch.Tensor, ...]:
+    """The first ``n`` bf16 pieces of x: hi = bf16_rn(x), mid =
+    bf16_rn(x - hi), lo = bf16_rn(x - hi - mid), round to nearest even (the
+    TPU kernels' ``astype(bfloat16)``). Each difference is exact in f32, so
+    for f32 x of exponent -110 to 127 hi + mid + lo is x exactly."""
+    rest = x.to(torch.float32)
+    out = []
+    for _ in range(n):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].to(torch.float32)
+    return tuple(out)
+
+
 def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) bf16 with hi = bf16_rn(x), lo = bf16_rn(x - hi): the TPU
-    kernels' ``astype(bfloat16)`` split, round to nearest even."""
-    x = x.to(torch.float32)
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+    """(hi, lo) bf16 with hi = bf16_rn(x), lo = bf16_rn(x - hi): bf16x3's
+    split."""
+    return split_pieces(x, 2)
+
+
+def split3_bf16(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(hi, mid, lo) bf16: the split of "highest"'s six passes."""
+    return split_pieces(x, 3)
 
 
 def mm(x: torch.Tensor, w: torch.Tensor, n_passes: int) -> torch.Tensor:
-    """x @ w with ``n_passes`` bf16 passes (:data:`PASSES`): 0 is the fp32
-    product; 1 is hi(x) @ hi(w); 3 adds hi(x) @ lo(w) and lo(x) @ hi(w).
-    The bf16 operands are multiplied as f32, where their products are
-    exact."""
-    if n_passes == 0:
-        return x @ w
-    xh, xl = (t.to(torch.float32) for t in split_bf16(x))
-    wh, wl = (t.to(torch.float32) for t in split_bf16(w))
-    out = xh @ wh
-    if n_passes == 3:
-        out = out + xh @ wl
-        out = out + xl @ wh
+    """x @ w with ``n_passes`` bf16 passes (:data:`PASSES`): the first
+    ``n_passes`` products of :data:`PASS_ORDER` over the pieces of x and w,
+    summed in that order. The bf16 pieces are multiplied as f32, where
+    their products are exact."""
+    n = PIECES[n_passes]
+    xs = [t.to(torch.float32) for t in split_pieces(x, n)]
+    ws = [t.to(torch.float32) for t in split_pieces(w, n)]
+    out = None
+    for a, b in PASS_ORDER[:n_passes]:
+        term = xs[a] @ ws[b]
+        out = term if out is None else out + term
     return out
 
 
@@ -189,13 +210,15 @@ def _round_up(x: int, m: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def mma_constants(cfg: FeatureConfig, fold_kaldi: bool = True) -> tuple:
-    """The tensor-core kernel's constants, split on the host, as CPU
-    tensors: (cs_hi, cs_lo) bf16 [round_up(frame_length, MMA_DEPTH),
-    round_up(nc, MMA_COLS)] with nc = 2*n_bins - 2 columns in
-    :func:`pair_order`; (fb_hi, fb_lo) bf16 [round_up(nc, MMA_COLS),
-    round_up(n_mels, 8)] with the rows to match (for magnitude: pair 0's
-    rows fb[0] and fb[n_bins-1], pair k's fb[k] and zeros); (dct_hi, dct_lo)
-    float32 with bf16 values [n_mels, n_mfcc], or None. Padding is zeros."""
+    """The tensor-core kernel's constants, split on the host at ``cfg``'s
+    precision into its :data:`PIECES` (hi; hi, lo; hi, mid, lo), as CPU
+    tensors: (cs, fb, dct), each a tuple of pieces. cs: bf16
+    [round_up(frame_length, MMA_DEPTH), round_up(nc, MMA_COLS)] with
+    nc = 2*n_bins - 2 columns in :func:`pair_order`; fb: bf16
+    [round_up(nc, MMA_COLS), round_up(n_mels, 8)] with the rows to match
+    (for magnitude: pair 0's rows fb[0] and fb[n_bins-1], pair k's fb[k]
+    and zeros); dct: float32 with bf16 values [n_mels, n_mfcc], or None
+    where the kernel stops at the log-mel. Padding is zeros."""
     nb, nm, fl = cfg.n_bins, cfg.n_mels, cfg.frame_length
     nc = 2 * nb - 2
     order = pair_order(nb)
@@ -209,11 +232,13 @@ def mma_constants(cfg: FeatureConfig, fold_kaldi: bool = True) -> tuple:
         plain = fb_constant(cfg)
         fb[0, :nm], fb[1, :nm] = plain[0], plain[nb - 1]
         fb[2:nc:2, :nm] = plain[1:nb - 1]
+    n = PIECES[passes(cfg)]
     dct = dct_constant(cfg)
-    dct_split = (None, None) if dct is None else tuple(
-        t.to(torch.float32) for t in split_bf16(torch.tensor(dct)))
-    return (*split_bf16(torch.from_numpy(cs)),
-            *split_bf16(torch.from_numpy(fb)), *dct_split)
+    return (split_pieces(torch.from_numpy(cs), n),
+            split_pieces(torch.from_numpy(fb), n),
+            None if dct is None else tuple(
+                t.to(torch.float32)
+                for t in split_pieces(torch.tensor(dct), n)))
 
 
 def put(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
@@ -227,11 +252,19 @@ def _device_constants(cfg: FeatureConfig, device: torch.device):
             put(dct_constant(cfg), device))
 
 
+def ptrs(tensors: tuple) -> list:
+    """Data pointers, None for None."""
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
 @functools.lru_cache(maxsize=None)
 def _mma_device_constants(cfg: FeatureConfig, fold_kaldi: bool,
                           device: torch.device) -> tuple:
-    return tuple(None if t is None else t.to(device).contiguous()
-                 for t in mma_constants(cfg, fold_kaldi))
+    """Each constant's pieces on ``device``, padded with None to three (the
+    kernel's hi, mid, lo arguments)."""
+    return tuple(tuple([t.to(device).contiguous() for t in pieces or ()]
+                       + [None] * (3 - len(pieces or ())))
+                 for pieces in mma_constants(cfg, fold_kaldi))
 
 
 def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
@@ -248,7 +281,7 @@ def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
 
 
 def check_config(cfg: FeatureConfig) -> None:
-    """What both kernels take: a mel path with an even n_fft."""
+    """What the kernel takes: a mel path with an even n_fft."""
     if cfg.n_mels <= 0 or cfg.n_fft % 2:
         raise ValueError("the signal kernel needs n_mels > 0 and an even "
                          f"n_fft (got n_mels={cfg.n_mels}, n_fft={cfg.n_fft})")
@@ -259,15 +292,15 @@ def _out_dim(cfg: FeatureConfig) -> int:
 
 
 def log_tail(mel: torch.Tensor, dct: torch.Tensor | None,
-             cfg: FeatureConfig, n_passes: int = 0) -> torch.Tensor:
+             cfg: FeatureConfig) -> torch.Tensor:
     """The twins' shared tail after the mel product: the floored log (or
-    none), then the DCT (at ``n_passes``) when the kernel runs it."""
+    none), then the DCT at ``cfg``'s precision when the kernel runs it."""
     kind = _LOG_KIND[cfg.log]
     if kind == 1:
         mel = torch.log(torch.clamp(mel, min=cfg.log_floor))
     elif kind == 2:
         mel = torch.log10(torch.clamp(mel, min=cfg.log_floor))
-    return mel if dct is None else mm(mel, dct, n_passes)
+    return mel if dct is None else mm(mel, dct, passes(cfg))
 
 
 def dft_tail(frames: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
@@ -283,7 +316,7 @@ def dft_tail(frames: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
         im2 = torch.zeros_like(sq[..., :nb])
         im2[..., 1: nb - 1] = sq[..., nb:]
         sq = torch.sqrt(sq[..., :nb] + im2)
-    return log_tail(mm(sq, fb, n), dct, cfg, n)
+    return log_tail(mm(sq, fb, n), dct, cfg)
 
 
 def signal_features_reference(buf: torch.Tensor, n_frames: int,
@@ -306,15 +339,14 @@ def lib(csrc: str) -> ctypes.CDLL:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     ll, out = ctypes.c_longlong, ctypes.POINTER(i)
     for name, args in (
-            ("tpufeat_signal_features",
-             [i, p, i, ll, i, i, i, p, i, p, i, i, i, i, i, f, p, i, p, p]),
             ("tpufeat_signal_features_mma",
-             [i, p, i, ll, i, i, i, p, p, i, p, p, i, i, i, f, p, p, i, p, i,
-              p]),
-            ("tpufeat_mel_log_dct", [i, p, i, i, p, i, i, f, p, i, p, p]),
-            ("tpufeat_signal_resources", [i, i, i, i, out, out]),
+             [i, p, i, ll, i, i, i, p, p, p, i, p, p, p, i, i, i, f, p, p, p,
+              i, p, i, p]),
+            ("tpufeat_mel_log_dct_mma",
+             [i, p, ll, i, p, i, i, f, p, i, p, i, p]),
             ("tpufeat_signal_mma_resources", [i, i, out, out]),
-            ("tpufeat_tail_resources", [i, i, out, out])):
+            ("tpufeat_tail_mma_resources",
+             [i, i, i, i, out, out, out, out, out])):
         getattr(so, name).argtypes = args
         getattr(so, name).restype = i
     so.tpufeat_cuda_error_string.argtypes = [i]
@@ -329,28 +361,23 @@ def raise_on(so: ctypes.CDLL, err: int, what: str) -> None:
                            f"({so.tpufeat_cuda_error_string(err).decode()})")
 
 
-def query_resources(query, *args) -> tuple[int, int]:
-    """(dynamic shared memory per block in bytes, blocks per SM) from one
-    of the library's resource queries, on the current CUDA device."""
+def query_resources(query, *args, outputs: int = 2) -> tuple[int, ...]:
+    """The ``outputs`` integers of one of the library's resource queries
+    (dynamic shared memory per block in bytes and blocks per SM first), on
+    the current CUDA device."""
     so = lib(str(_build.CSRC))
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    raise_on(so, getattr(so, query)(*args, ctypes.byref(smem),
-                                    ctypes.byref(blocks)), "occupancy query")
-    return smem.value, blocks.value
-
-
-def resources(cfg: FeatureConfig) -> tuple[int, int]:
-    """(dynamic shared memory per block in bytes, blocks per SM) of the
-    FFMA kernel's launch for ``cfg`` on the current CUDA device."""
-    return query_resources("tpufeat_signal_resources", cfg.hop_length,
-                           cfg.frame_length, 2 * cfg.n_bins - 2, cfg.n_mels)
+    got = [ctypes.c_int() for _ in range(outputs)]
+    raise_on(so, getattr(so, query)(*args, *map(ctypes.byref, got)),
+             "occupancy query")
+    return tuple(v.value for v in got)
 
 
 def mma_resources(cfg: FeatureConfig) -> tuple[int, int]:
-    """The same for the tensor-core kernel at ``cfg``'s precision (bf16x3's
-    three passes for ``"highest"``), K1 and K3 alike."""
-    return query_resources("tpufeat_signal_mma_resources",
-                           passes(cfg) or 3, cfg.n_mels)
+    """(dynamic shared memory per block in bytes, blocks per SM) of the
+    kernel's launch at ``cfg``'s precision and n_mels on the current CUDA
+    device, K1 and K3 alike."""
+    return query_resources("tpufeat_signal_mma_resources", passes(cfg),
+                           cfg.n_mels)
 
 
 def launch_mma(buf: torch.Tensor, n_frames: int, hop: int,
@@ -360,18 +387,14 @@ def launch_mma(buf: torch.Tensor, n_frames: int, hop: int,
     at t*hop) into ``out`` [B * n_frames, D] on the current stream; raises
     if the launch fails. K1 and K3 (``kernels/staged.py``) both come here."""
     so = lib(str(_build.CSRC))
-    cs_hi, cs_lo, fb_hi, fb_lo, dct_hi, dct_lo = _mma_device_constants(
-        cfg, fold_kaldi, buf.device)
+    cs, fb, dct = _mma_device_constants(cfg, fold_kaldi, buf.device)
     B, M = buf.shape
     err = so.tpufeat_signal_features_mma(
         buf.device.index, buf.data_ptr(), B, M, n_frames, hop,
-        cfg.frame_length, cs_hi.data_ptr(), cs_lo.data_ptr(),
-        2 * cfg.n_bins - 2, fb_hi.data_ptr(), fb_lo.data_ptr(), cfg.n_mels,
-        int(cfg.spectrum == "magnitude"), _LOG_KIND[cfg.log], cfg.log_floor,
-        None if dct_hi is None else dct_hi.data_ptr(),
-        None if dct_lo is None else dct_lo.data_ptr(), out.shape[-1],
-        out.data_ptr(), passes(cfg),
-        torch.cuda.current_stream(buf.device).cuda_stream)
+        cfg.frame_length, *ptrs(cs), 2 * cfg.n_bins - 2, *ptrs(fb),
+        cfg.n_mels, int(cfg.spectrum == "magnitude"), _LOG_KIND[cfg.log],
+        cfg.log_floor, *ptrs(dct), out.shape[-1], out.data_ptr(),
+        passes(cfg), torch.cuda.current_stream(buf.device).cuda_stream)
     raise_on(so, err, what)
 
 
@@ -379,11 +402,11 @@ def signal_features(buf: torch.Tensor, n_frames: int,
                     cfg: FeatureConfig) -> torch.Tensor:
     """Fused signal -> features [B, n_frames, D] (see the module docstring).
 
-    A CUDA tensor launches the kernel of ``cfg.matmul_precision`` on the
+    A CUDA tensor launches the kernel at ``cfg.matmul_precision`` on the
     current stream (the library builds at the first such call) and raises
     if the launch fails; a CPU tensor runs the plain twin. Nothing falls
     back."""
-    global launches, mma_launches
+    global mma_launches
     _check(buf, n_frames, cfg)
     if buf.device.type == "cpu":
         return signal_features_reference(buf, n_frames, cfg)
@@ -392,21 +415,7 @@ def signal_features(buf: torch.Tensor, n_frames: int,
     B, M = buf.shape
     out = torch.empty(B, n_frames, _out_dim(cfg), device=buf.device,
                       dtype=torch.float32)
-    if passes(cfg):
-        launch_mma(buf, n_frames, cfg.hop_length, cfg, True, out,
-                   "tensor-core signal kernel launch")
-        mma_launches += 1
-        return out
-    so = lib(str(_build.CSRC))
-    cs, fb, dct = _device_constants(cfg, buf.device)
-    magnitude = cfg.spectrum == "magnitude"
-    err = so.tpufeat_signal_features(
-        buf.device.index, buf.data_ptr(), B, M, n_frames, cfg.hop_length,
-        cfg.frame_length, cs.data_ptr(), cs.shape[1], fb.data_ptr(),
-        fb.shape[0], cfg.n_mels, int(magnitude), cfg.n_bins,
-        _LOG_KIND[cfg.log], cfg.log_floor,
-        None if dct is None else dct.data_ptr(), out.shape[-1],
-        out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
-    raise_on(so, err, "signal kernel launch")
-    launches += 1
+    launch_mma(buf, n_frames, cfg.hop_length, cfg, True, out,
+               "tensor-core signal kernel launch")
+    mma_launches += 1
     return out
