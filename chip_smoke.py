@@ -25,8 +25,15 @@ at "highest"; and the streaming front-end at serving size (4096 streams
 of 100 ms chunks) through ``StreamingFrontend``, ``extract_scan`` and the
 dynamic step, checked bit for bit across chunk plans (at bf16x3 and at
 "highest"), each path held against the same path with its kernel replaced
-by the plain twin on every stream, and timed per step; and
-the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
+by the plain twin on every stream, and timed per step; Kaldi-39
+(``KALDI39`` with the fused flags, :func:`kaldi39_phase`): offline
+``extract`` of the same batch with ragged lengths at "highest", bf16x3
+and with sliding CMVN, against the twin path on every row and the golden,
+timed whole and as K1 and the deltas/CMVN tail, then the online
+``StreamingPipeline`` with sliding CMVN on the 4096 streams, its base
+columns bit for bit against ``extract_scan``, its deltas against the
+offline ones, its rows against the offline ``extract``, its step timed;
+and the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
 the mode's bound, then every precision's pass count at the scripts' shape
@@ -200,6 +207,180 @@ def twin_of(module, name: str):
     """A context in which ``module.name`` (a kernel wrapper) is its plain
     twin ``module.name_reference``: the twin path of a timing."""
     return mock.patch.object(module, name, getattr(module, f"{name}_reference"))
+
+
+def kaldi39_phase(sig: np.ndarray, streams: int, steps: int,
+                  reset_counts, read_counts, card: str,
+                  device: str = "cuda") -> dict:
+    """Kaldi-39 (``BASELINE.json`` config 3) through the public entry
+    points: offline ``extract`` of ``KALDI39`` with the fused flags on the
+    batch ``sig`` with ragged lengths, at "highest" and bf16x3 and with
+    sliding CMVN, each held against the same call with K1 replaced by its
+    twin on every row and row 0 against the float64 golden, and timed
+    whole and split into K1 and the deltas/CMVN tail; then the online
+    ``StreamingPipeline`` with sliding CMVN on ``streams`` streams of
+    ``steps`` 100 ms chunks, its base columns bit for bit against
+    ``extract_scan``, its delta columns against the offline deltas, its
+    rows against the offline ``extract``, and its step timed. Returns the
+    largest kernel-vs-twin error of the signal kernel's outputs per row of
+    the kernels line."""
+    from tpufeat_torch import KALDI39, StreamingPipeline, extract, features
+    from tpufeat_torch import framing, streaming
+    from tpufeat_torch.kernels import signal
+    from tpufeat_torch.kernels import _tolerance as tolerance
+    from tpufeat_torch.reference import cpu
+
+    B, n = sig.shape
+    rng = np.random.default_rng(39)
+    lengths = np.concatenate([[n], rng.integers(n // 100, n, B - 1)])
+    x = torch.from_numpy(sig).to(device)
+    lx = torch.from_numpy(lengths).to(device)
+    errs = {"signal_mma": 0.0, "signal_mma_highest": 0.0}
+    sliding = dict(cmvn="sliding")
+    fused = dataclasses.replace(KALDI39, **FUSED)
+    cfgs = {"highest": dataclasses.replace(fused, **HIGHEST),
+            "bf16x3": fused,
+            "sliding_highest": dataclasses.replace(fused, **HIGHEST,
+                                                   **sliding)}
+    gold = {}
+    paths = {}
+    for name, cfg in cfgs.items():
+        hi = cfg.matmul_precision == "highest"
+        reset_counts()
+        res = extract(x, lx, cfg)
+        torch.cuda.synchronize()
+        read_counts(f"kaldi39 extract ({name})", {"signal_features_mma": 1},
+                    highest=hi)
+        feats, nf = res.features, res.num_frames.cpu()
+        check(feats.shape == (B, cfg.num_frames(n), 39), f"kaldi39 {name} "
+              f"shape {tuple(feats.shape)}")
+        check(torch.equal(nf, framing.num_frames_dynamic(
+            torch.from_numpy(lengths), cfg).to(torch.int32)),
+            f"kaldi39 {name} frame counts")
+        valid = res.mask
+        check(bool(torch.isfinite(feats[valid]).all()),
+              f"kaldi39 {name} finite")
+        # the same call with K1's twin: every row, valid frames
+        with twin_of(signal, "signal_features"):
+            want = extract(x, lx, cfg).features
+        torch.cuda.synchronize()
+        err, rel = scaled_err(feats[valid], want[valid])
+        print(f"kaldi39 {name}: B={B} ragged ({int(nf.sum())} frames), "
+              f"kernel path vs twin path on every row: max_abs_err="
+              f"{err:.3e} scaled={rel:.3e} (limit {TOL_GOLDEN})")
+        check(rel <= TOL_GOLDEN, f"kaldi39 {name} kernel vs twin {rel:.3e}")
+        # K1's own output at these shapes, held as every K1 launch is
+        xx = framing.preemphasize(x, cfg.preemphasis)
+        buf = framing.framing_buffer(xx, lx, cfg)[0].contiguous()
+        F = cfg.num_frames(n)
+        a = tolerance.compare_to_twin(
+            signal.signal_features(buf, F, cfg),
+            signal.signal_features_reference(buf, F, cfg),
+            framing.frames_from_buffer(buf, F, cfg.frame_length,
+                                       cfg.hop_length),
+            cfg, what=f"kaldi39 K1 ({name})")
+        row = "signal_mma_highest" if hi else "signal_mma"
+        errs[row] = max(errs[row], a.max_abs_err)
+        print(f"kaldi39 {name}: K1 vs twin at these shapes max_abs_err="
+              f"{a.max_abs_err:.3e} scaled={a.scaled:.3e}")
+        key = (cfg.cmvn, 0)
+        if key not in gold:
+            gold[key] = cpu.extract(sig[0].astype(np.float64), cfg)
+        err, rel = scaled_err(feats[0].cpu(), torch.from_numpy(gold[key]))
+        limit = TOL_GOLDEN if hi else None
+        print(f"kaldi39 {name}: row 0 vs float64 golden max_abs_err="
+              f"{err:.3e} scaled={rel:.3e}"
+              f"{f' (limit {limit})' if limit else ' (no limit: bf16x3)'}")
+        if limit:
+            check(rel <= limit, f"kaldi39 {name} row 0 vs golden {rel:.3e}")
+        del res, want, feats, valid
+        feat, mask = features.features_impl(x, lx, cfg)
+        paths[f"{name}_extract"] = functools.partial(extract, x, lx, cfg)
+        paths[f"{name}_k1_only"] = functools.partial(
+            signal.signal_features, buf, F, cfg)
+        paths[f"{name}_tail_only"] = functools.partial(
+            features.finish_impl, feat, mask, lx, cfg)
+    ms, times, peak = time_paths(paths, REPS)
+    audio = B * n / SR
+    for name in cfgs:
+        whole, k1, tail = (ms[f"{name}_{p}"] for p in
+                           ("extract", "k1_only", "tail_only"))
+        print(f"kaldi39 {name}: extract {whole:.3f} ms per batch of {B} x "
+              f"{n / SR:.0f} s (RTFx {audio / (whole / 1e3):.0f}), K1 "
+              f"{k1:.3f} ms, deltas/CMVN tail {tail:.3f} ms, the rest "
+              f"{whole - k1 - tail:.3f} ms; runs "
+              f"{['%.3f' % t for t in times[f'{name}_extract']]}, peak "
+              f"memory {peak[f'{name}_extract'] / 2**20:.0f} MiB [{card}]")
+    del paths, x, lx
+
+    # online: StreamingPipeline(KALDI39 with sliding CMVN) at serving size
+    cfg = cfgs["sliding_highest"]
+    base_cfg = dataclasses.replace(cfg, deltas=False, cmvn="none")
+    gen = torch.Generator(device=device).manual_seed(39)
+    xs = torch.randn(streams, steps * CHUNK, generator=gen,
+                     device=device) * 0.1
+    pipe = StreamingPipeline(cfg, streams, device=device)
+    base, pre = [], []
+    process, scmvn = pipe.frontend.process, pipe._scmvn.process
+    # record what the front-end emits and what reaches the sliding CMVN
+    pipe.frontend.process = lambda c: base.append(process(c)[0]) or \
+        (base[-1], None)
+    pipe._scmvn.process = lambda r: pre.append(r) or scmvn(r)
+    reset_counts()
+    outs = [pipe.process(xs[:, k * CHUNK:(k + 1) * CHUNK])
+            for k in range(steps)]
+    torch.cuda.synchronize()
+    read_counts("kaldi39 StreamingPipeline.process (sliding CMVN)",
+                {"signal_features_mma": steps}, highest=True)
+    outs.append(pipe.flush())
+    out = torch.cat(outs, dim=1)
+    base, pre = torch.cat(base, dim=1), torch.cat(pre, dim=1)
+    F = cfg.num_frames(steps * CHUNK)
+    check(out.shape == (streams, F, 39), f"pipeline shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "pipeline finite")
+    scan = streaming.extract_scan(xs, base_cfg, CHUNK)
+    check(torch.equal(base, scan), "pipeline base columns != extract_scan")
+    nf = torch.full((streams,), F, device=device)
+    d1 = features.deltas(scan, nf)
+    offline = torch.cat([scan, d1, features.deltas(d1, nf)], dim=-1)
+    check(torch.equal(pre[..., :13], scan), "pipeline rows' base columns")
+    gap = (pre - offline).abs().max().item()
+    err, rel = scaled_err(pre, offline)
+    print(f"kaldi39 StreamingPipeline S={streams} x {steps} steps of "
+          f"{CHUNK}: base columns bit-identical to extract_scan(..., "
+          f"{CHUNK}); delta columns vs offline deltas of those rows: "
+          f"largest gap {gap:.3e} (scaled {rel:.3e}, limit {TOL_STREAM})")
+    check(rel <= TOL_STREAM, f"pipeline deltas vs offline {rel:.3e}")
+    one = extract(xs, cfg=cfg).features
+    err, rel = scaled_err(out, one)
+    print(f"kaldi39 StreamingPipeline vs offline extract of the same config "
+          f"(cmvn_min_window {cfg.cmvn_min_window} rows of delay, all "
+          f"{F} rows after flush): max_abs_err={err:.3e} scaled={rel:.3e} "
+          f"(limit {TOL_KERNEL})")
+    check(rel <= TOL_KERNEL, f"pipeline vs offline extract {rel:.3e}")
+    del outs, out, base, pre, scan, d1, offline, one, pipe
+
+    # the steady step: a pipeline past its min_window start-up
+    pipe = StreamingPipeline(cfg, streams, device=device)
+    chunks = [xs[:, k * CHUNK:(k + 1) * CHUNK].contiguous()
+              for k in range(steps)]
+    warm = -(-(cfg.cmvn_min_window + 2 * cfg.delta_order
+               * cfg.delta_window) * cfg.hop_length // CHUNK) + 1
+    for chunk in chunks[:warm]:
+        pipe.process(chunk)
+    feed = itertools.cycle(chunks[warm:])
+    check(pipe.process(next(feed)).shape[1] > 0, "pipeline emits in steady "
+          "state")
+    ms, times, peak = time_paths(
+        {"step": lambda: pipe.process(next(feed))}, STEP_REPS)
+    budget_ms = 1e3 * CHUNK / SR
+    print(f"kaldi39 StreamingPipeline step (sliding CMVN, window "
+          f"{cfg.cmvn_window}): median {ms['step']:.3f} ms per step of "
+          f"{streams} streams x {CHUNK} samples, "
+          f"{100 * ms['step'] / budget_ms:.2f} % of the {budget_ms:.0f} ms "
+          f"real-time budget, runs {['%.3f' % t for t in times['step']]}, "
+          f"peak memory {peak['step'] / 2**20:.0f} MiB [{card}]")
+    return errs
 
 
 def main() -> int:
@@ -912,7 +1093,13 @@ def main() -> int:
               f"peak memory {peak[name] / 2**20:.0f} MiB [{card}]")
     del paths, xs, chunks
 
-    # 9. the anatomy family (K5a-h): each runner's every mode at its
+    # 9. Kaldi-39, offline and online (StreamingPipeline)
+    for row, err in kaldi39_phase(sig, STREAMS, STEPS, reset_counts,
+                                  read_counts, card).items():
+        kernel_rows[row]["max_abs_err"] = max(
+            kernel_rows[row]["max_abs_err"], err)
+
+    # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its
     # plain twin, both timed in turns, beside its bound. The tolerances are
     # tpufeat_torch.experiments._common's (the CPU and card tests use the

@@ -90,15 +90,34 @@ def _frozen(a: np.ndarray) -> np.ndarray:
 
 @contextlib.contextmanager
 def no_tf32():
-    """Full fp32 matrix products inside the block (a plain twin states its
-    precision); the caller's TF32 flags are restored on exit."""
+    """Full fp32 matrix products inside the block (a plain twin, and every
+    product of the plain path, states its precision). The caller's setting
+    of cuBLAS and cuDNN is saved and restored through the API the caller
+    used: the legacy ``allow_tf32`` flags, or ``fp32_precision`` (torch
+    refuses to read the legacy flags once it is set, and a parent's
+    ``fp32_precision`` overrides them). A setting that already keeps fp32
+    is not touched."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
-    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    parents = any(getattr(b, "fp32_precision", "none") != "none"
+                  for b in (torch.backends, cudnn))
+    saved = []
+    for legacy, leaf in ((matmul, matmul), (cudnn, cudnn.conv)):
+        try:
+            if parents:
+                raise RuntimeError("the caller set fp32_precision")
+            owner, attr, pinned = legacy, "allow_tf32", False
+            old = legacy.allow_tf32
+        except RuntimeError:
+            owner, attr, pinned = leaf, "fp32_precision", "ieee"
+            old = leaf.fp32_precision
+        if old != pinned:
+            saved.append((owner, attr, old))
+            setattr(owner, attr, pinned)
     try:
         yield
     finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
+        for owner, attr, old in reversed(saved):
+            setattr(owner, attr, old)
 
 
 def passes(cfg: FeatureConfig) -> int:

@@ -8,8 +8,11 @@ Drives S = 4096 streams of 100 ms MFCC-13 chunks (the chunk of
 signal kernel), the dynamic step with the staged flags (K3) and with
 ``gemm_dft`` off (K4), and the static step with ``use_energy`` (K3). Each
 runs with its kernel and with the kernel replaced by its plain twin. Then
-it times K1 and K3 alone on one step's frames with CUDA events, and
-profiles the staged one-shot extract of B = 128 x 30 s through K3 and K4.
+the steady step of ``StreamingPipeline`` on Kaldi-39 with sliding CMVN (K1
+at "highest", then deltas and the sliding-CMVN ring). Then it times K1 and
+K3 alone on one step's frames with CUDA events, and profiles the one-shot
+extract of B = 128 x 30 s: staged through K3 and K4, and Kaldi-39 through
+K1 with mean and with sliding CMVN.
 
 Each profiled line gives, per call:
 
@@ -37,7 +40,8 @@ from unittest import mock
 
 import torch
 
-from tpufeat_torch import MFCC13_HTK, extract, framing, streaming
+from tpufeat_torch import (KALDI39, MFCC13_HTK, StreamingPipeline, extract,
+                           framing, streaming)
 from tpufeat_torch.kernels import signal, staged
 
 STREAMS, CHUNK, STEPS = 4096, 1600, 30      # benchmarks/serving.py's 100 ms
@@ -142,6 +146,19 @@ def main() -> int:
                       stepper(cfg, dynamic, module, kernel, twin, chunks),
                       args.steps)
 
+    cfg_k39 = dataclasses.replace(KALDI39, cmvn="sliding",
+                                  **dict(FUSED, matmul_precision="highest"))
+    pipe = StreamingPipeline(cfg_k39, STREAMS, device="cuda")
+    for chunk in chunks[:12]:            # past the 100-frame start-up
+        pipe.process(chunk)
+    k = 12
+
+    def pipeline_step():
+        nonlocal k
+        pipe.process(chunks[k % STEPS])
+        k += 1
+    breakdown("step pipeline_kaldi39_sliding", pipeline_step, args.steps)
+
     # K1 and K3 alone on one steady step's frames: the buffer of
     # frame_length - 1 carried samples plus one chunk, 10 frames a stream
     fl, hop = cfg_fused.frame_length, cfg_fused.hop_length
@@ -164,8 +181,11 @@ def main() -> int:
     print(f"signal kernel on [128, {sig.shape[1]}] x {nf} frames: "
           f"{k1:.3f} ms")
 
-    for name, flags in (("extract_k3", STAGED_K3), ("extract_k4", STAGED_K4)):
-        cfg = dataclasses.replace(MFCC13_HTK, **flags)
+    for name, cfg in (
+            ("extract_k3", dataclasses.replace(MFCC13_HTK, **STAGED_K3)),
+            ("extract_k4", dataclasses.replace(MFCC13_HTK, **STAGED_K4)),
+            ("extract_kaldi39", dataclasses.replace(cfg_k39, cmvn="mean")),
+            ("extract_kaldi39_sliding", cfg_k39)):
         breakdown(name, lambda: extract(sig, cfg=cfg), 3)
     return 0
 

@@ -7,7 +7,9 @@ Two interchangeable plain paths:
    frame_length -> n_fft by the transform.
 2. ``gemm``: the DFT as two matmuls against precomputed [frame_length,
    n_bins] cos/sin matrices with the analysis window folded in — the
-   formulation the fused signal kernel runs.
+   formulation the fused signal kernel runs. The products run in fp32
+   whatever the caller's TF32 setting, as the reference pins them to
+   HIGHEST.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from tpufeat_torch import matrices
 from tpufeat_torch.config import FeatureConfig
+from tpufeat_torch.kernels.signal import no_tf32
 
 
 def power_spectrum_rfft(windowed: torch.Tensor,
@@ -36,7 +39,8 @@ def power_spectrum_gemm(raw_frames: torch.Tensor,
     *before* the window multiply."""
     c, s = matrices.dft_matrices(cfg.frame_length, cfg.n_fft, cfg.window)
     kw = dict(dtype=raw_frames.dtype, device=raw_frames.device)
-    re = raw_frames @ torch.as_tensor(c, **kw)
-    im = raw_frames @ torch.as_tensor(s, **kw)
+    with no_tf32():
+        re = raw_frames @ torch.as_tensor(c, **kw)
+        im = raw_frames @ torch.as_tensor(s, **kw)
     p = re * re + im * im
     return p if cfg.spectrum == "power" else torch.sqrt(p)

@@ -32,12 +32,19 @@ PyTorch runs eagerly, so the ``make_*_fn`` names of the reference return
 plain cached callables, and the device scan is a Python loop over steps.
 Tensors live on the device the caller chooses, the card (``"cuda"``)
 unless it passes ``device="cpu"``; nothing moves between devices behind
-the caller's back. The streaming wrappers
-(deltas, CMVN, the pipeline and the pool) are later slices of the port.
+the caller's back.
+
+The online config-3 wrappers follow: :class:`StreamingDeltas`, running
+CMVN (:func:`streaming_cmvn`), :class:`StreamingSlidingCMVN`,
+:class:`OnlineCmvn`, and :class:`StreamingPipeline`, which composes them
+behind the front-end. Their per-step functions are plain torch on the
+tensors of the front-end's output; the stream pool (``StreamPool``) is a
+later slice of the port (ROADMAP.md queue 1, item 6b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 from tpufeat_torch import features, framing
-from tpufeat_torch.config import MFCC13_HTK, FeatureConfig
+from tpufeat_torch.config import KALDI39, MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
 
 
@@ -440,25 +447,766 @@ class StreamingFrontend:
         )
 
 
+# ---------------------------------------------------------------------------
+# Online deltas: the streaming twin of features.deltas. Delta_t needs frames
+# t-w..t+w, so the stream emits with a fixed lookahead of w frames; the start
+# edge replicates as the offline operator does, and flush() finishes the
+# last w frames with end replication. Two chained stages give delta-deltas.
+# The frames seen so far are a host int, so every step is static slices.
+# ---------------------------------------------------------------------------
+
+def init_delta_state(batch_size: int, dim: int, window: int = 2,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    """Delta carry: the last 2*window base frames [B, 2w, D]."""
+    return torch.zeros(batch_size, 2 * window, dim, dtype=dtype,
+                       device=features.default_device(device))
+
+
+def _delta_minus(work: torch.Tensor, i: int, F: int, z0: int,
+                 window: int) -> torch.Tensor:
+    """work[p - i] for the emitted p, with start-edge replication: work
+    positions below z0 (the first real frame) read work[:, z0]."""
+    m_lo = window - i
+    if m_lo >= z0:
+        return work[:, m_lo: m_lo + F]
+    k = min(z0 - m_lo, F)
+    first = work[:, z0: z0 + 1].expand(work.shape[0], k, work.shape[2])
+    return torch.cat([first, work[:, z0: z0 + F - k]], dim=1)
+
+
+def streaming_delta_step(carry: torch.Tensor, feats: torch.Tensor, *,
+                         window: int = 2, n_seen: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One online-delta step: ``feats`` [B, F, D] new base frames ->
+    (carry', deltas [B, n_emit, D]), n_emit = F once the stream has flowed
+    past the ``window``-frame lookahead (F - window on the first chunks).
+    ``n_seen``: base frames BEFORE this chunk, a host int."""
+    B, F, D = feats.shape
+    w = window
+    work = torch.cat([carry, feats], dim=1)                 # [B, 2w + F, D]
+    n_emit = min(F, max(0, n_seen + F - w))
+    new_carry = work[:, -2 * w:]
+    if n_emit == 0:
+        return new_carry, feats.new_zeros(B, 0, D)
+    z0 = max(2 * w - n_seen, 0)          # work index of global frame 0
+    t0 = F - n_emit                      # first emitted t within [0, F)
+    denom = 2.0 * sum(i * i for i in range(1, w + 1))
+    out = feats.new_zeros(B, n_emit, D)
+    for i in range(1, w + 1):
+        plus = work[:, w + t0 + i: w + t0 + i + n_emit]
+        minus = _delta_minus(work, i, F, z0, w)[:, t0:]
+        out = out + i * (plus - minus)
+    return new_carry, out / denom
+
+
+def streaming_delta_flush(carry: torch.Tensor, *, window: int = 2,
+                          n_seen: int = 0) -> torch.Tensor:
+    """Finish the stream: the last min(window, n_seen) deltas, with the
+    offline operator's end-edge replication."""
+    B, _, D = carry.shape
+    w = window
+    n_emit = min(w, n_seen)
+    if n_emit == 0:
+        return carry.new_zeros(B, 0, D)
+    z0 = max(2 * w - n_seen, 0)
+    t0 = w - n_emit                      # emitted p in [w + t0, 2w)
+    denom = 2.0 * sum(i * i for i in range(1, w + 1))
+    last = carry[:, -1:]                 # the stream's last frame
+    out = carry.new_zeros(B, n_emit, D)
+    for i in range(1, w + 1):
+        # p + i, clipped at the final frame 2w - 1
+        n_clip = min(n_emit, i)
+        plus = torch.cat([carry[:, w + t0 + i: 2 * w],
+                          last.expand(B, n_clip, D)], dim=1)[:, :n_emit]
+        minus = _delta_minus(carry, i, w, z0, w)[:, t0: t0 + n_emit]
+        out = out + i * (plus - minus)
+    return out / denom
+
+
+class StreamingDeltas:
+    """Online deltas, chained after a :class:`StreamingFrontend` (and again
+    for delta-deltas): emits with a ``window``-frame lookahead; call
+    :meth:`flush` at the end of the stream. ``n_seen``, the frames seen, is
+    a host int shared by the batch."""
+
+    def __init__(self, dim: int, window: int = 2, batch_size: int = 1,
+                 device=None):
+        self.window = window
+        self.n_seen = 0
+        self.carry = init_delta_state(batch_size, dim, window, device=device)
+
+    def _seen(self) -> int:
+        # past 2w frames the start edge no longer shows
+        return min(self.n_seen, 2 * self.window)
+
+    def process(self, feats: torch.Tensor) -> torch.Tensor:
+        self.carry, out = streaming_delta_step(
+            self.carry, feats.to(torch.float32), window=self.window,
+            n_seen=self._seen())
+        self.n_seen += feats.shape[1]
+        return out
+
+    def flush(self) -> torch.Tensor:
+        return streaming_delta_flush(self.carry, window=self.window,
+                                     n_seen=self._seen())
+
+    def reset_rows(self, rows) -> None:
+        """Slot recycle: zero the rows' carry (the shared ``n_seen`` clock
+        keeps running). The slot's next ``window`` rows regress against the
+        zeroed carry; from then on they are the offline deltas of the
+        slot's own rows."""
+        self.carry = zero_rows(self.carry, rows)
+
+
+class RunningCMVN(NamedTuple):
+    """Causal running CMVN statistics (Welford), the streaming stand-in for
+    utterance-global CMVN."""
+    count: torch.Tensor  # [B]
+    mean: torch.Tensor   # [B, D]
+    m2: torch.Tensor     # [B, D] sum of squared deviations
+
+
+def init_cmvn(batch_size: int, dim: int, dtype=torch.float32,
+              device=None) -> RunningCMVN:
+    device = features.default_device(device)
+    return RunningCMVN(
+        count=torch.zeros(batch_size, dtype=dtype, device=device),
+        mean=torch.zeros(batch_size, dim, dtype=dtype, device=device),
+        m2=torch.zeros(batch_size, dim, dtype=dtype, device=device))
+
+
+def streaming_cmvn(stats: RunningCMVN, feats: torch.Tensor,
+                   mask: torch.Tensor, norm_vars: bool = False
+                   ) -> tuple[RunningCMVN, torch.Tensor]:
+    """Update the Welford statistics with this chunk's valid frames and
+    return the chunk normalized by the UPDATED statistics."""
+    m = mask[..., None].to(feats.dtype)
+    n_b = m.sum(dim=-2)[..., 0]                             # [B]
+    sum_b = (feats * m).sum(dim=-2)                         # [B, D]
+    new_count = stats.count + n_b
+    safe = torch.clamp(new_count, min=1.0)
+    mean_b = sum_b / torch.clamp(n_b, min=1.0)[..., None]
+    delta = mean_b - stats.mean
+    new_mean = stats.mean + delta * (n_b / safe)[..., None]
+    dev = (feats - new_mean[:, None, :]) * m
+    chunk_m2 = (dev * dev).sum(dim=-2)
+    new_m2 = stats.m2 + chunk_m2 + \
+        (delta * delta) * (stats.count * n_b / safe)[..., None]
+    out = feats - new_mean[:, None, :]
+    if norm_vars:
+        var = new_m2 / safe[..., None]
+        out = out / torch.sqrt(var + 1e-10)[:, None, :]
+    return RunningCMVN(new_count, new_mean, new_m2), out
+
+
+class StreamingSlidingCMVN:
+    """Causal sliding-window CMVN online (Kaldi ``apply-cmvn-sliding``):
+    each frame is normalized by the mean (and variance) of the trailing
+    ``window`` frames, and the first frames wait until ``min_window``
+    frames exist. The online twin of ``features.sliding_cmvn(center=
+    False)``, equal to it up to f32 summation order once ``min_window``
+    frames are buffered: every window is finite and trailing.
+
+    State: a [B, window, D] ring of raw rows on the device, a host frame
+    counter and the start-up buffer. :meth:`process` emits nothing until
+    ``min_window`` frames arrived, then the backlog, then chunk for chunk;
+    :meth:`flush` drains a stream shorter than ``min_window`` through the
+    offline operator."""
+
+    def __init__(self, dim: int, batch_size: int = 1, window: int = 600,
+                 min_window: int = 100, norm_vars: bool = False,
+                 device=None):
+        if window < 1 or min_window < 1:
+            raise ValueError("window and min_window must be >= 1")
+        if min_window > window:
+            # the offline operator borrows future context only for frames
+            # t < window, and the first emission here applies the
+            # min_window end to every frame (Kaldi asserts the same)
+            raise ValueError(f"min_window {min_window} > window {window}")
+        self.dim, self.window = dim, window
+        self.min_window, self.norm_vars = min_window, norm_vars
+        device = features.default_device(device)
+        self.carry = torch.zeros(batch_size, window, dim, device=device)
+        self.n_seen = 0
+        self._pending = torch.zeros(batch_size, 0, dim, device=device)
+
+    def process(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B, n, D] rows -> [B, m, D] normalized rows (m = n in steady
+        state; 0 while the first min_window frames are buffered)."""
+        rows = rows.to(torch.float32)
+        if self.n_seen == 0:
+            self._pending = torch.cat([self._pending, rows], dim=1)
+            if self._pending.shape[1] < self.min_window:
+                return rows[:, :0]
+            rows, self._pending = self._pending, self._pending[:, :0]
+        n = rows.shape[1]
+        if n == 0:
+            return rows
+        out, self.carry = sliding_cmvn_step(
+            self.carry, rows, self.n_seen, self.min_window, self.norm_vars)
+        self.n_seen += n
+        return out
+
+    def flush(self) -> torch.Tensor:
+        """Drain a short stream (fewer than min_window frames in all): the
+        offline clamps normalize every frame by the whole stream."""
+        p, self._pending = self._pending, self._pending[:, :0]
+        if p.shape[1] == 0:
+            return p
+        return features.sliding_cmvn(p, None, window=self.window,
+                                     min_window=self.min_window,
+                                     center=False, norm_vars=self.norm_vars)
+
+    def state(self) -> dict:
+        return {"carry": self.carry, "n_seen": self.n_seen,
+                "pending": self._pending}
+
+    def set_state(self, s: dict) -> None:
+        self.carry = s["carry"]
+        self.n_seen = int(s["n_seen"])
+        self._pending = s["pending"]
+
+    def reset_rows(self, rows) -> None:
+        """Slot recycle: zero the rows' ring (the batch emits in lockstep,
+        so a fresh slot gets no start-up delay of its own): its first
+        ``window`` rows are normalized against a partly zero window."""
+        self.carry = zero_rows(self.carry, rows)
+        if self._pending.shape[1]:
+            self._pending = zero_rows(self._pending, rows)
+
+
+def sliding_cmvn_step(carry: torch.Tensor, rows: torch.Tensor, n_prev: int,
+                      min_window: int, norm_vars: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sliding-CMVN step: the ring ``carry`` [B, w, D] of the last w
+    rows (zeros before the stream's start) and ``n`` new ``rows`` after
+    ``n_prev`` earlier ones -> (normalized rows [B, n, D], ring'). One
+    cumulative sum over ring and rows, pre-centred by their mean (which
+    cancels from x - mean exactly); the window ends are shifts of the row
+    index but for the start-up borrow and the short-ring floor, one row
+    each."""
+    w, n = carry.shape[1], rows.shape[1]
+    data = torch.cat([carry, rows], dim=1)                  # [B, w+n, D]
+    real = min(n_prev, w) + n            # the ring's real rows, and the new
+    g = data.sum(dim=1, keepdim=True) / real
+    k = torch.arange(w + n, device=data.device)[None, :, None]
+    x = (data - g) * (k >= w + n - real).to(data.dtype)
+
+    t_abs = n_prev + torch.arange(n, device=data.device)
+    ws = torch.clamp(t_abs - w, min=0)
+    we = torch.clamp(t_abs + 1, min=min_window)
+    cnt = (we - ws).to(x.dtype)[None, :, None]
+    upper_mask = (t_abs + 1 < min_window)[None, :, None]
+    lower_mask = (t_abs < w)[None, :, None]
+    borrow = min(max(min_window - n_prev + w, 0), w + n)
+    floor = min(max(w - n_prev, 0), w + n)
+
+    def winmean(v):
+        cs = features._cumsum0(v)                           # [B, w+n+1, D]
+        upper = torch.where(upper_mask, cs[:, borrow:borrow + 1],
+                            cs[:, w + 1:])                  # cs[j + w + 1]
+        lower = torch.where(lower_mask, cs[:, floor:floor + 1],
+                            cs[:, :n])                      # cs[j]
+        return (upper - lower) / cnt
+
+    mean = winmean(x)
+    out = x[:, w:] - mean
+    if norm_vars:
+        var = torch.clamp(winmean(x * x) - mean * mean, min=1e-10)
+        out = out / torch.sqrt(var)
+    return out, data[:, n:]
+
+
+class OnlineCmvn:
+    """Kaldi online2 ``OnlineCmvn``: trailing-window normalization smoothed
+    with speaker and global priors while the window is short, so frame 0
+    is emitted at once (the priors stand in for
+    :class:`StreamingSlidingCMVN`'s ``min_window`` delay).
+
+    The online twin of ``features.online_cmvn``, equal to it for any chunk
+    plan up to f32 summation order, with Kaldi's ``Freeze()``
+    (:meth:`freeze`). State: a [B, window, D] ring, a per-row frame counter
+    and the frozen statistics, all tensors, so :meth:`state` /
+    :meth:`set_state` go through ``save_state`` / ``load_state``."""
+
+    def __init__(self, dim: int, batch_size: int = 1, window: int = 600,
+                 speaker_stats=None, global_stats=None,
+                 speaker_frames: int = 600, global_frames: int = 200,
+                 norm_vars: bool = False, device=None):
+        if window < 1:
+            raise ValueError("window must be >= 1")
+        self.dim, self.window, self.norm_vars = dim, window, norm_vars
+        self.speaker_frames, self.global_frames = speaker_frames, \
+            global_frames
+
+        def unpack(st):
+            if st is None:
+                return 0.0, np.zeros(dim), np.zeros(dim)
+            if np.asarray(st.sum).shape != (dim,):
+                raise ValueError(f"prior stats dim "
+                                 f"{np.asarray(st.sum).shape} != ({dim},)")
+            return float(st.count), np.asarray(st.sum, np.float64), \
+                np.asarray(st.sumsq, np.float64)
+
+        self._cs, self._ssum, self._ssq = unpack(speaker_stats)
+        self._cg, self._gsum, self._gsq = unpack(global_stats)
+        device = features.default_device(device)
+        self.carry = torch.zeros(batch_size, window, dim, device=device)
+        # a frame counter PER ROW: a recycled slot restarts at 0, so its
+        # first frames are smoothed against the priors again (reset_rows)
+        self.n_seen = torch.zeros(batch_size, dtype=torch.int32,
+                                  device=device)
+        self.frozen = False
+        self._fmean = torch.zeros(batch_size, 1, dim, device=device)
+        self._fscale = torch.ones(batch_size, 1, dim, device=device)
+
+    def _smoothed(self, seg: np.ndarray):
+        """float64 smoothed (mean, var) of one row's trailing ``seg``
+        frames (the golden's arithmetic)."""
+        c = float(len(seg))
+        tot_sum, tot_sq = seg.sum(axis=0), (seg * seg).sum(axis=0)
+        ks = min(max(self.window - c, 0.0), float(self.speaker_frames),
+                 self._cs)
+        if ks > 0:
+            tot_sum = tot_sum + (ks / self._cs) * self._ssum
+            tot_sq = tot_sq + (ks / self._cs) * self._ssq
+        kg = min(max(self.window - c - ks, 0.0),
+                 float(self.global_frames), self._cg)
+        if kg > 0:
+            tot_sum = tot_sum + (kg / self._cg) * self._gsum
+            tot_sq = tot_sq + (kg / self._cg) * self._gsq
+        n = c + ks + kg
+        mean = tot_sum / n
+        return mean, np.maximum(tot_sq / n - mean * mean, 1e-10)
+
+    def freeze(self) -> None:
+        """Pin the smoothed statistics at the CURRENT frame (Kaldi
+        ``OnlineCmvn::Freeze``): later :meth:`process` calls normalize
+        against them and leave the window alone."""
+        n_rows = self.n_seen.cpu().numpy()
+        if n_rows.max() == 0 and self._cs == 0.0 and self._cg == 0.0:
+            raise ValueError("freeze() before any frame needs a speaker "
+                             "or global prior to freeze")
+        ring = self.carry.cpu().numpy().astype(np.float64)
+        means, scales = [], []
+        for b in range(ring.shape[0]):
+            k = int(min(n_rows[b], self.window))
+            mean, var = self._smoothed(ring[b, self.window - k:])
+            means.append(mean)
+            scales.append(1.0 / np.sqrt(var) if self.norm_vars
+                          else np.ones_like(var))
+        dev = self.carry.device
+        self._fmean = torch.as_tensor(np.stack(means)[:, None],
+                                      dtype=torch.float32, device=dev)
+        self._fscale = torch.as_tensor(np.stack(scales)[:, None],
+                                       dtype=torch.float32, device=dev)
+        self.frozen = True
+
+    def process(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B, n, D] rows -> [B, n, D] normalized rows (no delay)."""
+        rows = rows.to(torch.float32)
+        if rows.shape[1] == 0:
+            return rows
+        if self.frozen:
+            return (rows - self._fmean) * self._fscale
+
+        def moments(total, count):
+            return torch.as_tensor(total / max(count, 1.0),
+                                   dtype=torch.float32, device=rows.device)
+
+        out, self.carry = online_cmvn_step(
+            self.carry, rows, self.n_seen, self.norm_vars,
+            (self._cs, self.speaker_frames, moments(self._ssum, self._cs),
+             moments(self._ssq, self._cs)),
+            (self._cg, self.global_frames, moments(self._gsum, self._cg),
+             moments(self._gsq, self._cg)))
+        self.n_seen = self.n_seen + rows.shape[1]
+        return out
+
+    def state(self) -> dict:
+        return {"carry": self.carry, "n_seen": self.n_seen,
+                "frozen": self.frozen, "fmean": self._fmean,
+                "fscale": self._fscale}
+
+    def set_state(self, s: dict) -> None:
+        self.carry = s["carry"]
+        n = torch.as_tensor(s["n_seen"])
+        # a checkpoint of one shared frame count
+        self.n_seen = (n.expand(self.carry.shape[0]) if n.dim() == 0 else n
+                       ).to(device=self.carry.device, dtype=torch.int32)
+        self.frozen = bool(s["frozen"])
+        self._fmean = s["fmean"]
+        self._fscale = s["fscale"]
+
+    def reset_rows(self, rows) -> None:
+        """Slot recycle: zero the rows' ring AND frame counter, so the
+        slot's next frames are smoothed against the priors as a fresh Kaldi
+        OnlineCmvn's are. A :meth:`freeze` pin stays for every row; the
+        other rows keep their bits."""
+        self.carry = zero_rows(self.carry, rows)
+        self.n_seen = zero_rows(self.n_seen, rows)
+
+    def reset(self) -> None:
+        """Restart every row: clear the window, the counters and any
+        :meth:`freeze` pin; the priors (model data) stay."""
+        self.carry = torch.zeros_like(self.carry)
+        self.n_seen = torch.zeros_like(self.n_seen)
+        self.frozen = False
+        self._fmean = torch.zeros_like(self._fmean)
+        self._fscale = torch.ones_like(self._fscale)
+
+
+def online_cmvn_step(carry: torch.Tensor, rows: torch.Tensor,
+                     n_prev: torch.Tensor, norm_vars: bool, speaker: tuple,
+                     glob: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """One online-CMVN step over the ring ``carry`` [B, w, D] and ``n`` new
+    ``rows``, each row after its own ``n_prev`` [B] earlier frames ->
+    (normalized rows, ring'). Kaldi's trailing window [t+1-w, t+1) (one
+    frame narrower than apply-cmvn-sliding's), smoothed by the priors,
+    each ``(count, frames, mean, mean square)``. The same pre-centred
+    cumulative sum as :func:`sliding_cmvn_step`, the short-ring floor
+    gathered per row."""
+    w, n = carry.shape[1], rows.shape[1]
+    B, D = rows.shape[0], rows.shape[2]
+    dev = rows.device
+    data = torch.cat([carry, rows], dim=1)                  # [B, w+n, D]
+    n_prev = n_prev.to(torch.int64)
+    nprev = torch.clamp(n_prev, max=w)[:, None, None]       # [B, 1, 1]
+    g = data.sum(dim=1, keepdim=True) / (nprev + n).to(data.dtype)
+    k = torch.arange(w + n, device=dev)[None, :, None]
+    x = (data - g) * (k >= w - nprev).to(data.dtype)
+
+    t_abs = n_prev[:, None] + torch.arange(n, device=dev)[None, :]  # [B, n]
+    cnt = torch.clamp(t_abs + 1, max=w).to(x.dtype)[..., None]
+    (cs, s_frames, sm, smsq), (cg, g_frames, gm, gmsq) = speaker, glob
+    ks, kg = features._prior_counts(cnt, w, cs, s_frames, cg, g_frames)
+    # the priors re-centred by the same g
+    sm_c, gm_c = sm - g, gm - g
+    smsq_c = smsq - 2.0 * g * sm + g * g
+    gmsq_c = gmsq - 2.0 * g * gm + g * g
+    lower_mask = (t_abs + 1 < w)[..., None]                 # [B, n, 1]
+    fidx = torch.clamp(w - n_prev, 0, w + n)[:, None, None].expand(B, 1, D)
+
+    def winsum(v):
+        cums = features._cumsum0(v)                         # [B, w+n+1, D]
+        upper = cums[:, w + 1:]                             # cs[j + w + 1]
+        lower = torch.where(lower_mask, torch.gather(cums, 1, fidx),
+                            cums[:, 1:n + 1])               # cs[j + 1]
+        return upper - lower
+
+    tot = cnt + ks + kg
+    mean = (winsum(x) + ks * sm_c + kg * gm_c) / tot
+    out = x[:, w:] - mean
+    if norm_vars:
+        e2 = (winsum(x * x) + ks * smsq_c + kg * gmsq_c) / tot
+        var = torch.clamp(e2 - mean * mean, min=1e-10)
+        out = out / torch.sqrt(var)
+    return out, data[:, n:]
+
+
+class StreamingPipeline:
+    """The online config-3 pipeline: front-end -> online deltas (one
+    :class:`StreamingDeltas` stage per ``cfg.delta_order``) -> optional
+    CMVN -> optional transform, behind one ``process()`` / ``flush()``
+    pair.
+
+    Give it a full config (``KALDI39`` by default): the front-end runs the
+    base 13-dim pipeline, the delta stages add their columns with a
+    ``delta_order * delta_window``-frame lookahead, and FIFOs align
+    complete [base | delta | delta-delta | ...] rows in stream order. With
+    the kernel flags on the card the base columns are the bits of
+    :func:`extract_scan` for every hop-aligned chunk plan (the plain path's
+    cuFFT and cuBLAS, and the CPU's BLAS, may round a row otherwise with
+    the step's row count: about 1e-6); the delta columns are the offline
+    ``features.deltas`` of those rows, the same elementwise operations on
+    the same values.
+
+    CMVN: ``cfg.cmvn`` "mean" / "meanvar" normalize by causal running
+    statistics (:func:`streaming_cmvn`), which converge to the utterance's
+    but differ early on; "sliding" / "sliding-meanvar" by
+    :class:`StreamingSlidingCMVN`, whose finite trailing windows match the
+    offline ``features.extract`` of the same config up to f32 summation
+    order, after a ``cfg.cmvn_min_window``-frame delay at the start.
+    ``online_cmvn=`` an :class:`OnlineCmvn` (with ``cfg.cmvn="none"``)
+    applies Kaldi's prior-smoothed normalization at the same point.
+
+    ``transform=`` a [Do, D] (linear) or [Do, D + 1] (affine, bias last)
+    matrix over the D = ``cfg.feature_dim`` columns (Kaldi online2's
+    OnlineTransform, an LDA/MLLT or fMLLR matrix) is applied to the rows
+    after CMVN, in fp32 whatever the caller's TF32 setting.
+
+    Not ported yet: ``pitch=`` (ROADMAP.md queue 1, item 10), ``ivector=``
+    (item 11) and an ``input_rate=`` other than ``cfg.sample_rate`` (item
+    9) raise ``NotImplementedError``.
+
+    The state is tensors and host ints: :meth:`state` / :meth:`set_state`
+    go through :func:`save_state` / :func:`load_state`. Tensors live on
+    ``device``, the card unless the caller passes ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: FeatureConfig | None = None, batch_size: int = 1,
+                 pitch=False, input_rate: int | None = None,
+                 online_cmvn: OnlineCmvn | None = None, transform=None,
+                 ivector=None, device=None):
+        cfg = KALDI39 if cfg is None else cfg
+        for unported, what, item in (
+                (pitch, "pitch=", 10), (ivector is not None, "ivector=", 11),
+                (input_rate not in (None, cfg.sample_rate), "input_rate=",
+                 9)):
+            if unported:
+                raise NotImplementedError(
+                    f"StreamingPipeline's {what} is not ported to "
+                    f"tpufeat_torch yet: ROADMAP.md queue 1, item {item}")
+        if not cfg.deltas:
+            raise ValueError("StreamingPipeline is the deltas+CMVN "
+                             "composition; use StreamingFrontend for "
+                             "base-feature configs")
+        self.cfg = cfg
+        self.device = features.default_device(device)
+        base_cfg = dataclasses.replace(cfg, deltas=False, cmvn="none")
+        self.frontend = StreamingFrontend(base_cfg, batch_size, self.device)
+        dim = base_cfg.feature_dim
+        # stage i's output is stage i+1's input and column block i+1
+        self.stages = [StreamingDeltas(dim, cfg.delta_window, batch_size,
+                                       self.device)
+                       for _ in range(cfg.delta_order)]
+        self.cmvn_stats = self._scmvn = None
+        if cfg.cmvn.startswith("sliding"):
+            if cfg.cmvn_center:
+                raise ValueError(
+                    "streaming sliding CMVN is causal; cmvn_center=True "
+                    "needs future context — use offline extract()")
+            self._scmvn = StreamingSlidingCMVN(
+                cfg.feature_dim, batch_size, cfg.cmvn_window,
+                cfg.cmvn_min_window, cfg.cmvn.endswith("meanvar"),
+                self.device)
+        elif cfg.cmvn != "none":
+            self.cmvn_stats = init_cmvn(batch_size, cfg.feature_dim,
+                                        device=self.device)
+        self._ocmvn = online_cmvn
+        if online_cmvn is not None:
+            if cfg.cmvn != "none":
+                raise ValueError("online_cmvn= replaces cfg.cmvn; set "
+                                 f"cmvn='none' (got {cfg.cmvn!r})")
+            if online_cmvn.dim != cfg.feature_dim:
+                raise ValueError(
+                    f"online_cmvn dim {online_cmvn.dim} != pipeline "
+                    f"feature_dim {cfg.feature_dim}")
+        # _fifos[0] holds base rows, _fifos[i] stage i-1's rows; the last
+        # stage's rows are never queued: they drive the emission
+        self._fifos = [torch.zeros(batch_size, 0, dim, device=self.device)
+                       for _ in range(cfg.delta_order)]
+        self._transform = None
+        if transform is not None:
+            t = torch.as_tensor(transform, dtype=torch.float32,
+                                device=self.device)
+            if t.dim() != 2 or t.shape[1] not in (cfg.feature_dim,
+                                                  cfg.feature_dim + 1):
+                raise ValueError(
+                    f"transform {tuple(t.shape)} does not apply to "
+                    f"{cfg.feature_dim}-dim rows (want [Do, "
+                    f"{cfg.feature_dim}] or [Do, {cfg.feature_dim + 1}])")
+            self._transform = t
+
+    @property
+    def out_dim(self) -> int:
+        """The emitted rows' width: cfg.feature_dim, or the transform's
+        output rows."""
+        return self._transform.shape[0] if self._transform is not None \
+            else self.cfg.feature_dim
+
+    def _emit(self, last_rows: torch.Tensor) -> torch.Tensor:
+        """Pop n = last_rows rows off every FIFO and assemble the
+        [base | delta | delta-delta | ...] block, normalized and
+        transformed."""
+        n = last_rows.shape[1]
+        cols = []
+        for i, fifo in enumerate(self._fifos):
+            cols.append(fifo[:, :n])
+            self._fifos[i] = fifo[:, n:]
+        out = torch.cat(cols + [last_rows], dim=-1)
+        if self.cmvn_stats is not None and n:
+            self.cmvn_stats, out = streaming_cmvn(
+                self.cmvn_stats, out,
+                torch.ones(out.shape[:2], dtype=torch.bool,
+                           device=out.device),
+                norm_vars=self.cfg.cmvn == "meanvar")
+        elif self._scmvn is not None:
+            out = self._scmvn.process(out)
+        elif self._ocmvn is not None and n:
+            out = self._ocmvn.process(out)
+        # a zero-row chunk is transformed too, to keep its width
+        return self._apply_tf(out)
+
+    def _apply_tf(self, out: torch.Tensor) -> torch.Tensor:
+        """rows @ A^T (+ bias), in fp32 (the reference's HIGHEST)."""
+        t = self._transform
+        if t is None:
+            return out
+        d = out.shape[-1]
+        y = features.matmul(out, t[:, :d].T)
+        return y + t[:, d] if t.shape[1] == d + 1 else y
+
+    def process(self, chunk) -> torch.Tensor:
+        """[B, C] (or [C]) raw samples -> [B, n, out_dim] complete rows (n
+        lags the input by delta_order * delta_window frames, and by the
+        sliding CMVN's start-up delay)."""
+        base, _ = self.frontend.process(chunk)
+        rows = base
+        self._fifos[0] = torch.cat([self._fifos[0], base], dim=1)
+        for i, stage in enumerate(self.stages):
+            rows = stage.process(rows)
+            if i + 1 < len(self.stages):
+                self._fifos[i + 1] = torch.cat([self._fifos[i + 1], rows],
+                                               dim=1)
+        return self._emit(rows)
+
+    def flush(self) -> torch.Tensor:
+        """End of stream: drain the delta lookaheads with the offline edge
+        replication, and the sliding CMVN's start-up buffer."""
+        pending = None
+        for i, stage in enumerate(self.stages):
+            rows = stage.flush() if pending is None else torch.cat(
+                [stage.process(pending), stage.flush()], dim=1)
+            if i + 1 < len(self.stages):
+                self._fifos[i + 1] = torch.cat([self._fifos[i + 1], rows],
+                                               dim=1)
+            pending = rows
+        out = self._emit(pending)
+        if self._scmvn is not None:
+            # a short stream emits every row here: transform them too
+            out = torch.cat([out, self._apply_tf(self._scmvn.flush())],
+                            dim=1)
+        if any(f.shape[1] for f in self._fifos):
+            raise RuntimeError("rows left in the alignment FIFOs after flush")
+        return out
+
+    def reset(self) -> None:
+        """A fresh stream in every row; ``online_cmvn``'s priors and the
+        transform stay."""
+        if self._ocmvn is not None:
+            self._ocmvn.reset()
+        self.__init__(self.cfg, self._fifos[0].shape[0],
+                      online_cmvn=self._ocmvn, transform=self._transform,
+                      device=self.device)
+
+    @property
+    def warmup_rows(self) -> int:
+        """Rows to discard for a slot after :meth:`reset_rows` before its
+        output is exact: 2 * delta_order * delta_window for the delta
+        stages (the zeroed FIFO rows and the zeroed-carry regression), plus
+        the CMVN window while zeros wash out of it."""
+        w = 2 * self.cfg.delta_order * self.cfg.delta_window
+        if self._scmvn is not None:
+            w += self._scmvn.window
+        elif self._ocmvn is not None:
+            w += self._ocmvn.window
+        return w
+
+    def reset_rows(self, rows) -> None:
+        """Recycle the given batch slots for new streams without touching
+        the other rows, whose outputs keep their bits, or the shared chunk
+        schedule: the front-end slot restarts as a stream that carried
+        silence, the delta carries and queued FIFO rows are zeroed
+        (:attr:`warmup_rows`), running and sliding CMVN statistics restart,
+        and :class:`OnlineCmvn` restarts the rows against its priors."""
+        self.frontend.reset_rows(rows)
+        for stage in self.stages:
+            stage.reset_rows(rows)
+        if self.cmvn_stats is not None:
+            self.cmvn_stats = RunningCMVN(
+                *(zero_rows(leaf, rows) for leaf in self.cmvn_stats))
+        if self._scmvn is not None:
+            self._scmvn.reset_rows(rows)
+        if self._ocmvn is not None:
+            self._ocmvn.reset_rows(rows)
+        self._fifos = [zero_rows(f, rows) if f.shape[1] else f
+                       for f in self._fifos]
+
+    def state(self) -> dict:
+        """The whole pipeline state, host counters included, for
+        :func:`save_state`."""
+        s = {"frontend": self.frontend.state,
+             "deltas": [(st.carry, st.n_seen) for st in self.stages],
+             "cmvn": self.cmvn_stats,
+             "fifos": list(self._fifos)}
+        if self._scmvn is not None:
+            s["scmvn"] = self._scmvn.state()
+        if self._ocmvn is not None:
+            s["ocmvn"] = self._ocmvn.state()
+        return s
+
+    def set_state(self, s: dict) -> None:
+        if len(s["deltas"]) != len(self.stages):
+            raise ValueError(
+                f"checkpoint has {len(s['deltas'])} delta stages, config "
+                f"wants {len(self.stages)} (delta_order mismatch)")
+        for key, have in (("scmvn", self._scmvn), ("ocmvn", self._ocmvn)):
+            if (key in s) != (have is not None):
+                raise ValueError(f"checkpoint and pipeline disagree on "
+                                 f"{key} state")
+        self.frontend.state = s["frontend"]
+        for stage, (carry, n_seen) in zip(self.stages, s["deltas"]):
+            stage.carry, stage.n_seen = carry, int(n_seen)
+        self.cmvn_stats = s["cmvn"]
+        if self._scmvn is not None:
+            self._scmvn.set_state(s["scmvn"])
+        if self._ocmvn is not None:
+            self._ocmvn.set_state(s["ocmvn"])
+        self._fifos = list(s["fifos"])
+
+
 # --- checkpoint/resume ---
 
-def save_state(path: str, state: StreamState) -> None:
-    """Write a :class:`StreamState` to .npz in the reference's layout (one
-    array per field, ``leaf0``, ``leaf1``, ... in field order), so a state
-    saved by either package loads in the other."""
-    np.savez(path, treedef=f"{type(state).__name__}{tuple(state._fields)}",
-             **{f"leaf{i}": leaf.detach().cpu().numpy()
-                for i, leaf in enumerate(state)})
+def _leaves(tree) -> list:
+    """A state's leaves in the reference's pytree order: dict values by
+    sorted key, NamedTuple, tuple and list items in order, None none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
 
 
-def load_state(path: str, like: StreamState) -> StreamState:
+def _rebuild(like, leaves):
+    """``like``'s structure over the arrays of the iterator ``leaves``: a
+    tensor leaf becomes a tensor on ``like``'s device, a Python scalar the
+    scalar of its type."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(item, leaves) for item in like))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_rebuild(item, leaves) for item in like)
+    a = next(leaves)
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(a, device=like.device)
+    return type(like)(a.item())
+
+
+def save_state(path: str, state) -> None:
+    """Write a streaming state (a :class:`StreamState`, a
+    :class:`RunningCMVN`, or a wrapper's ``state()`` dict) to .npz in the
+    reference's layout: one array per leaf, ``leaf0``, ``leaf1``, ... in
+    pytree order, so a state saved by either package loads in the other."""
+    np.savez(path, treedef=type(state).__name__,
+             **{f"leaf{i}": (leaf.detach().cpu().numpy()
+                             if isinstance(leaf, torch.Tensor)
+                             else np.asarray(leaf))
+                for i, leaf in enumerate(_leaves(state))})
+
+
+def load_state(path: str, like):
     """Load a state saved by :func:`save_state` (or by the reference's);
     ``like`` gives the structure and the device (e.g. ``init_state(B, cfg,
-    device="cuda")``)."""
+    device="cuda")`` or a pipeline's ``state()``)."""
     with np.load(path) as data:
-        return type(like)(*(torch.as_tensor(data[f"leaf{i}"],
-                                            device=leaf.device)
-                            for i, leaf in enumerate(like)))
+        n = len(_leaves(like))
+        return _rebuild(like, iter([data[f"leaf{i}"] for i in range(n)]))
 
 
 def state_from_numpy(state, device=None) -> StreamState:
