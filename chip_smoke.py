@@ -36,8 +36,9 @@ offline ones, its rows against the offline ``extract``, its step timed;
 and the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
-the mode's bound, then every precision's pass count at the scripts' shape
-(the ``dftonly`` tail, and the mel product behind an identity DFT).
+the mode's bound, ``full`` and ``allhighest`` launched twice for the same
+bits, then every precision's pass count at the scripts' shape (the
+``dftonly`` tail, and the mel product behind an identity DFT).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Any failure exits non-zero; nothing is caught. Needs one
@@ -452,8 +453,9 @@ def main() -> int:
     print(f"build: {built.path.name} in {built.build_seconds:.2f} s "
           f"(nvcc {how})")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line \
-                or "Compiling entry" in line or ": nvcc " in line:
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "Compiling entry" in line or ": nvcc " in line) \
+                and "(C7519)" not in line:   # wgmma's injected arrives
             print("  ptxas:", line.strip())
     for n_mels in (26, 40, 80, 128):
         for prec in PRECISIONS:
@@ -474,11 +476,13 @@ def main() -> int:
                   f"{rows} rows, {slots} in the ring, fragments "
                   f"{'staged' if staged_consts else 'read in place'}")
             check(blocks >= 1, f"K4 for {name} fits no block on an SM")
-    for dft, mel in (("bf16x3", "bf16x3"), ("f32", "f32"), ("bf16x3", "f32"),
-                     ("f32", "bf16x3")):
-        smem, blocks = anatomy.resources(dft, mel)
-        print(f"  anatomy kernel, {dft} DFT and {mel} mel: {smem} B dynamic "
-              f"shared memory per block, {blocks} blocks per SM")
+    for dft, mel in (("bf16x1", "bf16x1"), ("bf16x3", "bf16x3"),
+                     ("bf16x6", "bf16x6"), ("bf16x3", None)):
+        smem, blocks, regs, spill = anatomy.resources(dft, mel)
+        print(f"  anatomy kernel, {dft} DFT and {mel or 'no'} mel: {smem} B "
+              f"dynamic shared memory per block, {blocks} blocks per SM, "
+              f"{regs} registers a thread at launch, {spill} B of local "
+              f"memory (spills) a thread")
         check(blocks >= 1, f"anatomy {dft}/{mel} fits no block on an SM")
 
     # 3. the signal kernel vs its plain twin, both on the card, at every
@@ -1156,12 +1160,26 @@ def main() -> int:
                             "phase_anatomy4.py:82", "phase_anatomy5.py:156")),
                     max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
                     bound=(b_ms, b_by))
+        if runner in ("phase_anatomy", "phase_anatomy4"):
+            # the same call twice, the same bits (fixed tiles and sums, no
+            # atomics; not part of the main path's launch count)
+            for mode in ("full", "allhighest"):
+                if mode in mod.MODES:
+                    twice = [_common.call(inp, mod.MODES[mode])()
+                             for _ in range(2)]
+                    torch.cuda.synchronize()
+                    check(torch.equal(*twice), f"{runner} {mode}: two "
+                          f"launches differ")
+                    print(f"anatomy {runner} {mode}: two launches "
+                          f"bit-identical [{card}]")
+                    del twice
         del inp, outs
 
     # the pass counts at the scripts' shape, where no z*z can round apart
     # in the kernel and the twin, held to the pre-log tolerance: dftonly at
     # every DFT precision, and every mel precision behind an identity DFT
-    # at f32 (z is then the signal, exactly)
+    # at six passes (z is then the signal, exactly: its three pieces
+    # against the identity's hi; the identity's lo and lo2 are 0)
     inp = phase_anatomy.inputs("cuda")
     eye = anatomy.constants_from_numpy(
         [[(0, 0, np.eye(_common.NCS, dtype=np.float32))]],
@@ -1169,7 +1187,7 @@ def main() -> int:
     for prec in anatomy.PRECISIONS:
         for what, consts, dft, mel, tail in (
                 ("dftonly", inp.consts, prec, None, "dftonly"),
-                ("identity DFT, mel", eye, "f32", prec, "nolog")):
+                ("identity DFT, mel", eye, "bf16x6", prec, "nolog")):
             got = anatomy.anatomy_features(inp.main, inp.bnd, consts, dft,
                                            mel, tail)
             want = twin(inp.main, inp.bnd, consts, dft, mel, tail)

@@ -26,7 +26,7 @@ import _anatomy_cases as cases
 
 pytestmark = pytest.mark.cuda
 
-PRECISIONS = ("bf16x1", "bf16x2", "bf16x3", "f32")
+PRECISIONS = ("bf16x1", "bf16x2", "bf16x3", "bf16x6")
 GEOMETRIES = {          # runner, small sizes
     "hop160": ("nopad_kernel", dict(B=2, F=16, TF=8)),
     "repack256": ("repack_kernel", dict(B=2, F=16, TF=8)),
@@ -60,8 +60,14 @@ def _check(inp, dft, mel, tail):
         tol = _common.flip_tolerance(inp, dft, want, tail)
         return _common.compare(got, want, tail, lossy_tol=tol)
     m64 = None if tail in ("nolog", "dftonly") else cases.pre_log_f64(
-        inp.main, inp.bnd, inp.consts, dft, mel)
+        inp.main, inp.bnd, inp.consts, *map(_mask_prec, (dft, mel)))
     return _common.compare(got, want, tail, m64)
+
+
+def _mask_prec(prec):
+    """The float64 mask's products: six passes are f32 within about 1e-6,
+    so their mask is the f32 matrices'."""
+    return "f32" if prec == "bf16x6" else prec
 
 
 @pytest.mark.parametrize("mel", PRECISIONS)
@@ -72,7 +78,7 @@ def test_every_precision_matches_plain(cuda, geometry, dft, mel):
 
 
 @pytest.mark.parametrize("tail", sorted(anatomy.TAILS))
-@pytest.mark.parametrize("prec", ["bf16x3", "f32"])
+@pytest.mark.parametrize("prec", ["bf16x3", "bf16x6"])
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_every_tail_matches_plain(cuda, geometry, prec, tail):
     _check(_inputs(geometry, cuda), prec, prec, tail)
@@ -89,21 +95,25 @@ def test_dft_passes_without_the_square(cuda, geometry, dft):
 
 @pytest.mark.parametrize("mel", PRECISIONS)
 def test_mel_passes_behind_an_identity_dft(cuda, mel):
-    """One phase whose DFT is the identity, at f32: z is the signal
-    exactly (products by 1 and by 0, sums of zeros), so z*z and its split
-    are the same bits in the kernel and the twin, and the mel product's
-    passes are held to the pre-log 1e-5."""
+    """One phase whose DFT is the identity, at bf16x6: z is the signal
+    exactly (its hi + lo + lo2 against the identity's hi; the identity's
+    lo and lo2 are 0), so z*z and its split are the same bits in the
+    kernel and the twin, and the mel product's passes are held to the
+    pre-log 1e-5."""
     inp = _inputs("phase4", cuda)
     fb = np.random.default_rng(1).standard_normal((512, 128))
     consts = anatomy.constants_from_numpy(
         [[(0, 0, np.eye(512, dtype=np.float32))]], fb.astype(np.float32),
         cuda)
-    got = anatomy.anatomy_features(inp.main, inp.bnd, consts, "f32", mel,
-                                   "nolog")
+    got = anatomy.anatomy_features(inp.main, inp.bnd, consts, "bf16x6",
+                                   mel, "nolog")
     want = anatomy.anatomy_features_reference(inp.main, inp.bnd, consts,
-                                              "f32", mel, "nolog")
+                                              "bf16x6", mel, "nolog")
+    z = anatomy.anatomy_features(inp.main, inp.bnd, consts, "bf16x6",
+                                 None, "dftonly")
     torch.cuda.synchronize()
     assert got.shape == (2, 16, 128)
+    assert torch.equal(z, inp.main[..., :128].reshape(2, 16, 128))
     _common.compare(got, want, "nolog")
 
 
@@ -143,9 +153,9 @@ def test_full_script_shape(cuda):
 
 
 def test_tile_crosses_the_blocks_last_row(cuda):
-    """TR = 160 rows: the kernel's third 64-row tile of each block ends
-    inside it (rows 128-159), and its last rows read the block's bnd
-    rows. Changing bnd changes exactly the rows that read it, in the
+    """TR = 160 rows: the kernel's second 128-row tile of each block ends
+    inside it (rows 128-159, TR not a multiple of the tile), and its last
+    rows read the block's bnd rows. Changing bnd changes exactly the rows that read it, in the
     kernel and in the twin."""
     inp = _inputs("phase4_k1", cuda)
     base = anatomy.anatomy_features(inp.main, inp.bnd, inp.consts)
@@ -182,3 +192,51 @@ def test_wrapper_raises_on_bad_input(cuda):
     shifted = torch.empty(inp.main.numel() + 1, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         f(shifted.view(inp.main.shape), inp.bnd, inp.consts)
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_one_utterance_fewer_items_than_sms(cuda, prec):
+    """B = 1 at the script's frame count: 4 phases x 768 rows in tiles of
+    128 (24 work items), fewer than the card's SMs, so the persistent
+    grid is one CTA an item."""
+    from tpufeat_torch.experiments import phase_anatomy
+    inp = phase_anatomy.inputs(cuda, B=1, F=3072, TR=256)
+    assert inp.main.shape[1] // 128 * 4 < torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    _check(inp, prec, prec, "sqlog")
+
+
+@pytest.mark.parametrize("mode", ["full", "bf16x1", "dftonly"])
+def test_two_launches_are_bit_identical(cuda, mode):
+    from tpufeat_torch.experiments import phase_anatomy
+    inp = phase_anatomy.inputs(cuda, B=8)
+    spec = phase_anatomy.MODES[mode]
+    first = _common.call(inp, spec)()
+    second = _common.call(inp, spec)()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_a_row_does_not_depend_on_its_place(cuda):
+    """The same utterance alone and as the last of a batch: its rows land
+    on other CTAs and items, and keep their bits."""
+    inp = _inputs("phase4_k1", cuda)
+    whole = anatomy.anatomy_features(inp.main, inp.bnd, inp.consts)
+    last = anatomy.anatomy_features(inp.main[-1:].contiguous(),
+                                    inp.bnd[-1:].contiguous(), inp.consts)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[-1:], last)
+
+
+@pytest.mark.parametrize("dft,mel", [("bf16x1", "bf16x1"),
+                                     ("bf16x3", "bf16x3"),
+                                     ("bf16x6", "bf16x6"),
+                                     ("bf16x3", None)])
+def test_resources(cuda, dft, mel):
+    """One CTA of 384 threads fits an SM, with the registers setmaxnreg
+    moves (40 for the producer, 232 for each consumer: 168 a thread at
+    launch, which the kernel's launch checks), and at most a few words of
+    local memory a thread."""
+    smem, blocks, regs, local = anatomy.resources(dft, mel)
+    assert blocks == 1 and 160_000 < smem <= 232_448
+    assert regs >= 168 and local <= 64

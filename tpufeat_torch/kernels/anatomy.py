@@ -17,17 +17,22 @@ differ only in operand layout and in how the products are split into bf16:
   (the term table), then the tail: ``sqlog`` log10(max(m*m + 1e-10,
   1e-10)), ``log`` log10(max(m, 1e-10)), ``nolog`` m, with
   m = (z*z) @ FB, or ``dftonly`` z[:, :NM].
-- Each product runs at a precision: ``bf16x1`` (hi*chi), ``bf16x2``
-  (+ hi*clo), ``bf16x3`` (+ lo*chi) or ``f32``. The splits are made as
-  the TPU kernels make them: hi = bf16_rn(x), lo = bf16_rn(x - hi), for
-  the signal and for z*z before the mel product; the matrices arrive
-  split. Products of bf16 operands are exact in f32, so the kernel and
-  the twin differ only in the order of their f32 sums.
+- Each product runs at a precision of P bf16 passes: the first P products
+  of :data:`signal.PASS_ORDER` over the operands' pieces hi = bf16_rn(x),
+  lo = bf16_rn(x - hi), lo2 = bf16_rn(x - hi - lo), summed in that order:
+  ``bf16x1`` (hi.hi), ``bf16x2`` (+ hi.lo), ``bf16x3`` (+ lo.hi) and
+  ``bf16x6`` (+ hi.lo2 + lo.lo + lo2.hi), the TPU's Precision.HIGHEST
+  (XLA's six-pass f32 emulation). The splits are made as the TPU kernels
+  make them, for the signal and for z*z before the mel product; the
+  matrices arrive split (``lo2`` needs the f32 matrix). Products of bf16
+  operands are exact in f32, so the kernel and the twin differ only in
+  the order of their f32 sums.
 
 The twin (:func:`anatomy_features_reference`) runs these as f32 matrix
-products of the bf16-rounded operands, TF32 off.
-:func:`constants_from_numpy` carries a script's matrices (f32, or its
-bf16 hi/lo pairs) over into the kernel's packed term table.
+products of the bf16 pieces, TF32 off. :func:`constants_from_numpy`
+carries a script's matrices (f32, or its bf16 hi/lo pairs) over into the
+term table, the pieces, and the kernel's packed blocks
+(:func:`pack_blocks`).
 """
 
 from __future__ import annotations
@@ -40,32 +45,41 @@ import numpy as np
 import torch
 
 from tpufeat_torch.kernels import _build, signal
-from tpufeat_torch.kernels.signal import split_bf16
+from tpufeat_torch.kernels.signal import split_bf16, split_pieces
 
-PRECISIONS = {"f32": 0, "bf16x1": 1, "bf16x2": 2, "bf16x3": 3}
+#: bf16 passes per product of each precision (the first P of PASS_ORDER)
+PRECISIONS = {"bf16x1": 1, "bf16x2": 2, "bf16x3": 3, "bf16x6": 6}
 TAILS = {"sqlog": 0, "log": 1, "nolog": 2, "dftonly": 3}
 BND_ROWS = 8            # successor rows per block (``bnd``'s third axis)
 MAX_PHASES, MAX_TERMS = 4, 4     # the kernel's term table: csrc/anatomy.cu
-COLS = 128              # NM, and the kernel's column tile: NC % COLS == 0
-DEPTH = 16              # every term's K is a multiple of the bf16 MMA depth
+COLS = 128              # NM, and the kernel's column chunk: NC % COLS == 0
+DEPTH = 16              # every term's K is a multiple of the wgmma depth
+ZCOLS = 64              # columns of a packed DFT block: NZ
+SLICE = 64              # depth of a staged matrix slice (one swizzled row)
+PIECE_NAMES = ("hi", "lo", "lo2")
 #: kernel launches so far (a plain count; the twin never adds to it)
 launches = 0
 
 
 class Constants(NamedTuple):
-    """The term table and the packed matrices, on one device.
+    """The term table, the matrices' pieces and their packed blocks, on one
+    device.
 
     ``table[p]`` lists phase p's terms as (row shift s, lane offset a,
-    depth K, first row of the term's matrix in the packed ``d_*``). Each
-    matrix kind is None where the source did not carry it: a script that
-    holds only bf16 hi/lo pairs has no f32 matrices."""
+    depth K, first row of the term's matrix in the stacked ``d_*``). A
+    kind is None where the source did not carry it: a script that holds
+    only bf16 hi/lo pairs has no f32 matrices, so no ``lo2`` pieces."""
     table: tuple
     d_hi: torch.Tensor | None      # [sum K, NC] bf16
     d_lo: torch.Tensor | None
+    d_lo2: torch.Tensor | None
     d_f32: torch.Tensor | None     # [sum K, NC] f32
     fb_hi: torch.Tensor | None     # [NC, NM] bf16
     fb_lo: torch.Tensor | None
+    fb_lo2: torch.Tensor | None
     fb_f32: torch.Tensor | None    # [NC, NM] f32
+    d_blocks: torch.Tensor         # [blocks, pieces, 64 * 64] bf16
+    fb_blocks: torch.Tensor        # [NC / 64, pieces, 128 * 64] bf16
 
 
 def _tensor(a) -> torch.Tensor:
@@ -81,47 +95,116 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _kinds(m) -> tuple:
-    """(hi, lo, f32) CPU tensors of one matrix given as an f32 array (split
-    here) or as a script's (hi, lo) or (hi, lo, f32) tuple."""
+    """(hi, lo, lo2, f32) CPU tensors of one matrix given as an f32 array
+    (split here) or as a script's (hi, lo) or (hi, lo, f32) tuple; lo2 =
+    bf16_rn(f32 - hi - lo) needs the f32 matrix."""
     if isinstance(m, (tuple, list)):
         parts = [_tensor(a) for a in m]
         if len(parts) not in (2, 3) or any(
                 p.dtype != torch.bfloat16 for p in parts[:2]):
             raise ValueError("a split matrix is (hi, lo) or (hi, lo, f32) "
                              "with bf16 hi and lo")
-        return parts[0], parts[1], parts[2].float() if len(parts) == 3 \
-            else None
+        if len(parts) == 2:
+            return parts[0], parts[1], None, None
+        f32 = parts[2].float()
+        rest = f32 - parts[0].float() - parts[1].float()
+        return parts[0], parts[1], rest.to(torch.bfloat16), f32
     f32 = _tensor(m).float()
-    return (*split_bf16(f32), f32)
+    return (*split_pieces(f32, 3), f32)
 
 
-def _pack(mats: list, device) -> tuple:
-    kinds = [_kinds(m) for m in mats]
-    out = []
-    for i in range(3):
-        parts = [k[i] for k in kinds]
-        out.append(None if any(p is None for p in parts)
-                   else torch.cat(parts).contiguous().to(device))
-    return tuple(out)
+@functools.lru_cache(maxsize=None)
+def _swizzle(rows: int) -> torch.Tensor:
+    """Where element (n, k) of a [rows, 64] block (flat n*64 + k) sits in
+    wgmma's K-major 128-byte swizzle: row n is 128 bytes, and its eight
+    16-byte pieces are permuted by n % 8."""
+    n = torch.arange(rows)[:, None]
+    k = torch.arange(SLICE)[None, :]
+    return (n * SLICE + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
+
+
+def _swizzled(blocks: torch.Tensor) -> torch.Tensor:
+    """[..., n, 64] blocks -> [..., n * 64] in the swizzled order."""
+    rows = blocks.shape[-2]
+    flat = blocks.reshape(*blocks.shape[:-2], rows * SLICE)
+    out = torch.empty_like(flat)
+    out[..., _swizzle(rows)] = flat
+    return out
+
+
+def pack_blocks(pieces: list, transpose: bool) -> torch.Tensor:
+    """A matrix's bf16 pieces as the kernel's packed blocks, [blocks,
+    pieces, n * 64]: a block holds n output columns and 64 rows of the
+    product's depth (zeros past the depth), each piece K-major (a row per
+    output column) in wgmma's 128-byte swizzle.
+
+    ``pieces`` are [K, NC] (a DFT matrix), blocks (j, c) of depth 64j..
+    and n = 64 columns 64c.., in the order j * NC / 64 + c (a slice's
+    column blocks side by side); or, with ``transpose``, FB [NC, 128],
+    blocks c of depth 64c.. (z's columns) and all n = 128 mel columns."""
+    m = torch.stack(pieces)                      # [P, K, N]
+    P, K, N = m.shape
+    if transpose:
+        b = m.reshape(P, K // SLICE, SLICE, N).permute(1, 0, 3, 2)
+        return _swizzled(b).contiguous()         # [c, P, n * k]
+    ns = -(-K // SLICE)
+    m = torch.nn.functional.pad(m, (0, 0, 0, ns * SLICE - K))
+    b = m.reshape(P, ns, SLICE, N // ZCOLS, ZCOLS).permute(1, 3, 0, 4, 2)
+    return _swizzled(b).reshape(ns * N // ZCOLS, P,
+                                ZCOLS * SLICE).contiguous()
+
+
+def _stack(kinds: list, i: int):
+    parts = [k[i] for k in kinds]
+    return None if any(p is None for p in parts) else torch.cat(parts)
 
 
 def constants_from_numpy(terms, fb, device) -> Constants:
     """The kernel's constants from a script's matrices.
 
     ``terms[p]`` lists phase p's terms as (row shift s, lane offset a,
-    matrix), each matrix [K, NC] an f32 array (split into bf16 hi/lo here)
-    or the script's own (hi, lo) or (hi, lo, f32) arrays; ``fb`` [NC, NM]
-    likewise. The matrices are packed phase by phase, term by term."""
-    table, mats, row = [], [], 0
+    matrix), each matrix [K, NC] an f32 array (split into bf16 pieces
+    here) or the script's own (hi, lo) or (hi, lo, f32) arrays; ``fb``
+    [NC, NM] likewise. The matrices are stacked phase by phase, term by
+    term, and packed into blocks in that order: a term's first block is
+    the sum of ceil(K / 64) * NC / 64 over the terms before it."""
+    table, kinds, row = [], [], 0
     for phase in terms:
         entries = []
         for s, a, m in phase:
-            k = _kinds(m)[0].shape[0]
-            entries.append((int(s), int(a), k, row))
-            mats.append(m)
-            row += k
+            k = _kinds(m)
+            entries.append((int(s), int(a), k[0].shape[0], row))
+            kinds.append(k)
+            row += k[0].shape[0]
         table.append(tuple(entries))
-    return Constants(tuple(table), *_pack(mats, device), *_pack([fb], device))
+    fbk = _kinds(fb)
+    d = [_stack(kinds, i) for i in range(4)]
+    n = 3 if d[2] is not None else 2
+    d_blocks = torch.cat([pack_blocks(list(k[:n]), False) for k in kinds])
+    nf = 3 if fbk[2] is not None else 2
+    fb_blocks = pack_blocks(list(fbk[:nf]), True)
+    put = (lambda t: None if t is None else t.contiguous().to(device))
+    return Constants(tuple(table), *map(put, d), *map(put, fbk),
+                     put(d_blocks), put(fb_blocks))
+
+
+def first_blocks(consts: Constants) -> list:
+    """Each term's first packed block, phase by phase (the kernel's term
+    table)."""
+    nc = consts.d_hi.shape[1]
+    out, block = [], 0
+    for phase in consts.table:
+        out.append([])
+        for _, _, k, _ in phase:
+            out[-1].append(block)
+            block += -(-k // SLICE) * (nc // ZCOLS)
+    return out
+
+
+def pieces(prec: str) -> tuple[int, int]:
+    """(signal pieces, matrix pieces) a product at ``prec`` reads."""
+    order = signal.PASS_ORDER[:PRECISIONS[prec]]
+    return (1 + max(a for a, _ in order), 1 + max(b for _, b in order))
 
 
 def _geometry(main, bnd, consts: Constants, dft: str, mel: str, tail: str):
@@ -153,27 +236,25 @@ def _geometry(main, bnd, consts: Constants, dft: str, mel: str, tail: str):
             not 1 <= len(p) <= MAX_TERMS for p in consts.table):
         raise ValueError(f"the term table takes 1-{MAX_PHASES} phases of "
                          f"1-{MAX_TERMS} terms")
-    used = [(dft, ("d_f32",) if dft == "f32" else ("d_hi", "d_lo"))]
-    if tail != "dftonly":
-        used.append((mel, ("fb_f32",) if mel == "f32" else ("fb_hi", "fb_lo")))
-    for prec, fields in used:
-        for f in fields:
+    used = [("d", dft)] + ([] if tail == "dftonly" else [("fb", mel)])
+    for kind, prec in used:
+        for f in (f"{kind}_{n}" for n in PIECE_NAMES[:pieces(prec)[1]]):
             t = getattr(consts, f)
             if t is None:
-                raise ValueError(f"{prec} needs the {f} matrices, which the "
-                                 f"constants do not carry")
+                raise ValueError(f"{prec} needs the {f} matrices (split from "
+                                 f"f32 matrices), which the constants do "
+                                 f"not carry")
             if t.device != main.device:
                 raise ValueError(f"constants on {t.device}, main on "
                                  f"{main.device}")
-    d = consts.d_f32 if consts.d_f32 is not None else consts.d_hi
-    fb = consts.fb_f32 if consts.fb_f32 is not None else consts.fb_hi
+    d, fb = consts.d_hi, consts.fb_hi
     NC, NM = d.shape[1], fb.shape[1]
     if fb.shape[0] != NC or NM != COLS or NC % COLS:
         raise ValueError(f"need DFT matrices [K, NC] and FB [NC, {COLS}] "
                          f"with NC a multiple of {COLS}, got NC={NC}, FB "
                          f"{tuple(fb.shape)}")
     if W % 4:
-        raise ValueError(f"rows of W={W} samples: the kernel's 16-byte loads "
+        raise ValueError(f"rows of W={W} samples: the kernel's bulk copies "
                          f"need W a multiple of 4")
     for phase in consts.table:
         for s, a, k, _ in phase:
@@ -187,15 +268,15 @@ def _geometry(main, bnd, consts: Constants, dft: str, mel: str, tail: str):
 
 
 def _dot(x: torch.Tensor, m: tuple, prec: str) -> torch.Tensor:
-    """x @ M at ``prec``; ``m`` is M's (hi, lo, f32) as f32 tensors."""
-    if prec == "f32":
-        return x @ m[2]
-    xhi, xlo = (t.to(torch.float32) for t in split_bf16(x))
-    out = xhi @ m[0]
-    if prec != "bf16x1":
-        out = out + xhi @ m[1]
-    if prec == "bf16x3":
-        out = out + xlo @ m[0]
+    """x @ M at ``prec``: the first P products of PASS_ORDER over x's
+    pieces and ``m``, M's (hi, lo, lo2) as f32 tensors, summed in that
+    order (``signal.mm``'s form)."""
+    order = signal.PASS_ORDER[:PRECISIONS[prec]]
+    xs = [t.to(torch.float32) for t in split_pieces(x, pieces(prec)[0])]
+    out = None
+    for a, b in order:
+        term = xs[a] @ m[b]
+        out = term if out is None else out + term
     return out
 
 
@@ -219,7 +300,7 @@ def spectra_reference(main: torch.Tensor, bnd: torch.Tensor,
     B, R, W, nblk, TR, _, _ = _geometry(main, bnd, consts, dft, None,
                                         "dftonly")
     ext = torch.cat([main.reshape(B, nblk, TR, W), bnd], dim=2)
-    d = _as_f32(consts.d_hi, consts.d_lo, consts.d_f32)
+    d = _as_f32(consts.d_hi, consts.d_lo, consts.d_lo2)
     for phase in consts.table:
         z = None
         with signal.no_tf32():
@@ -238,7 +319,7 @@ def anatomy_features_reference(main: torch.Tensor, bnd: torch.Tensor,
     (:func:`spectra_reference`), then the tail, the phases interleaved
     into frame order. [B, R * H, NM] float32."""
     B, R, _, _, _, _, NM = _geometry(main, bnd, consts, dft, mel, tail)
-    fb = _as_f32(consts.fb_hi, consts.fb_lo, consts.fb_f32)
+    fb = _as_f32(consts.fb_hi, consts.fb_lo, consts.fb_lo2)
     outs = []
     for z in spectra_reference(main, bnd, consts, dft):
         if tail == "dftonly":
@@ -252,30 +333,21 @@ def anatomy_features_reference(main: torch.Tensor, bnd: torch.Tensor,
 def work(main: torch.Tensor, bnd: torch.Tensor, consts: Constants,
          dft: str = "bf16x3", mel: str = "bf16x3", tail: str = "sqlog"
          ) -> tuple[dict, int]:
-    """The least work of one call, from the shapes: ({"bf16": FLOP, "f32":
-    FLOP} of the products at their precisions, one bf16 pass counting as
-    2*M*N*K), and the bytes that must move: the signal and ``bnd`` read
-    once, the matrices the call uses read once, the output written once.
-    ``dftonly`` needs only z's first NM columns."""
+    """The least work of one call, from the shapes: ({"bf16": FLOP} of the
+    products' passes, one pass counting as 2*M*N*K), and the bytes that
+    must move: the signal and ``bnd`` read once, the matrix pieces the
+    call uses read once, the output written once. ``dftonly`` needs only
+    z's first NM columns."""
     B, R, _, _, _, NC, NM = _geometry(main, bnd, consts, dft, mel, tail)
-    flops = {"bf16": 0, "f32": 0}
     cols = NM if tail == "dftonly" else NC
     depth = sum(k for phase in consts.table for _, _, k, _ in phase)
-
-    def add(prec, macs):
-        kind = "f32" if prec == "f32" else "bf16"
-        flops[kind] += 2 * macs * (1 if prec == "f32" else int(prec[-1]))
-
-    add(dft, B * R * depth * cols)
-    if tail != "dftonly":
-        add(mel, B * R * len(consts.table) * NC * NM)
-    used = [consts.d_f32] if dft == "f32" else [consts.d_hi, consts.d_lo]
-    if tail != "dftonly":
-        used += [consts.fb_f32] if mel == "f32" else [consts.fb_hi,
-                                                      consts.fb_lo]
+    flops = 2 * B * R * depth * cols * PRECISIONS[dft]
     moved = (main.numel() + bnd.numel() + B * R * len(consts.table) * NM) * 4
-    moved += sum(t.numel() * t.element_size() for t in used)
-    return flops, moved
+    moved += 2 * consts.d_hi.shape[0] * cols * pieces(dft)[1]
+    if tail != "dftonly":
+        flops += 2 * B * R * len(consts.table) * NC * NM * PRECISIONS[mel]
+        moved += 2 * NC * NM * pieces(mel)[1]
+    return {"bf16": flops}, moved
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,27 +357,25 @@ def lib(csrc: str) -> ctypes.CDLL:
     so = signal.lib(csrc)
     i, p = ctypes.c_int, ctypes.c_void_p
     so.tpufeat_anatomy_features.argtypes = [
-        i, p, p, i, i, i, i, i, p, p, p, p, p, i, p, p, p, i, i, i, i, p, p]
+        i, p, p, i, i, i, i, i, p, p, p, i, p, i, i, i, i, i, i, p, p]
     so.tpufeat_anatomy_features.restype = i
-    so.tpufeat_anatomy_resources.argtypes = [
-        i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    ip = ctypes.POINTER(i)
+    so.tpufeat_anatomy_resources.argtypes = [i, i, ip, ip, ip, ip]
     so.tpufeat_anatomy_resources.restype = i
     return so
 
 
-def resources(dft: str, mel: str) -> tuple[int, int]:
-    """(dynamic shared memory per block in bytes, blocks per SM) of the
-    kernel's launch at these precisions on the current CUDA device."""
+def resources(dft: str, mel: str | None) -> tuple[int, int, int, int]:
+    """(dynamic shared memory per block in bytes, blocks per SM, registers
+    per thread at launch, local memory per thread in bytes: spills) of the
+    kernel's launch at these precisions (``mel`` None: dftonly) on the
+    current CUDA device."""
     so = lib(str(_build.CSRC))
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    vals = [ctypes.c_int() for _ in range(4)]
     signal.raise_on(so, so.tpufeat_anatomy_resources(
-        int(dft == "f32"), int(mel == "f32"), ctypes.byref(smem),
-        ctypes.byref(blocks)), "occupancy query")
-    return smem.value, blocks.value
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+        PRECISIONS[dft], PRECISIONS[mel] if mel else 0,
+        *map(ctypes.byref, vals)), "occupancy query")
+    return tuple(v.value for v in vals)
 
 
 def anatomy_features(main: torch.Tensor, bnd: torch.Tensor,
@@ -322,26 +392,28 @@ def anatomy_features(main: torch.Tensor, bnd: torch.Tensor,
     B, R, W, nblk, _, NC, NM = _geometry(main, bnd, consts, dft, mel, tail)
     if main.device.type == "cpu":
         return anatomy_features_reference(main, bnd, consts, dft, mel, tail)
-    ptrs = [t for t in (main, bnd, *consts[1:]) if t is not None]
+    ptrs = (main, bnd, consts.d_blocks, consts.fb_blocks)
     if any(t.data_ptr() % 16 for t in ptrs):
-        raise ValueError("the kernel's 16-byte loads need every tensor to "
+        raise ValueError("the kernel's bulk copies need every tensor to "
                          "start at a 16-byte boundary: pass a fresh copy")
     so = lib(str(_build.CSRC))
     H = len(consts.table)
     flat = [0] * (MAX_PHASES * MAX_TERMS * 4)
-    for p, phase in enumerate(consts.table):
-        for t, entry in enumerate(phase):
-            flat[(p * MAX_TERMS + t) * 4:(p * MAX_TERMS + t + 1) * 4] = entry
+    for p, (phase, blocks) in enumerate(zip(consts.table,
+                                            first_blocks(consts))):
+        for t, ((s, a, k, _), block) in enumerate(zip(phase, blocks)):
+            flat[(p * MAX_TERMS + t) * 4:(p * MAX_TERMS + t + 1) * 4] = \
+                (s, a, k, block)
     table = (ctypes.c_int * len(flat))(*flat)
     counts = (ctypes.c_int * MAX_PHASES)(*[len(p) for p in consts.table],
                                          *[0] * (MAX_PHASES - H))
     out = torch.empty(B, R * H, NM, device=main.device, dtype=torch.float32)
-    mel_mode = PRECISIONS[mel] if tail != "dftonly" else PRECISIONS["f32"]
     err = so.tpufeat_anatomy_features(
         main.device.index, main.data_ptr(), bnd.data_ptr(), B, R, W, nblk,
-        H, table, counts, _ptr(consts.d_hi), _ptr(consts.d_lo),
-        _ptr(consts.d_f32), NC, _ptr(consts.fb_hi), _ptr(consts.fb_lo),
-        _ptr(consts.fb_f32), NM, PRECISIONS[dft], mel_mode, TAILS[tail],
+        H, table, counts, consts.d_blocks.data_ptr(),
+        consts.d_blocks.shape[1], consts.fb_blocks.data_ptr(),
+        consts.fb_blocks.shape[1], NC, NM, PRECISIONS[dft],
+        0 if tail == "dftonly" else PRECISIONS[mel], TAILS[tail],
         out.data_ptr(), torch.cuda.current_stream(main.device).cuda_stream)
     signal.raise_on(so, err, "anatomy kernel launch")
     launches += 1
