@@ -33,7 +33,19 @@ timed whole and as K1 and the deltas/CMVN tail, then the online
 ``StreamingPipeline`` with sliding CMVN on the 4096 streams, its base
 columns bit for bit against ``extract_scan``, its deltas against the
 offline ones, its rows against the offline ``extract``, its step timed;
-and the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
+the other front-end families (:func:`families_phase`): one ``extract`` of
+the same ragged batch for FBANK80, WHISPER128, GFCC13, FBANK80 with VTLN,
+PLP13 and PNCC13 with the fused flags at bf16x3 and "highest" (K1 with
+log "none" for PLP's and PNCC's raw energies) and SPEC257 on the plain
+path, each with its K1 launches, K1 against its twin, two rows against the
+float64 golden and its time; the stream pool (:func:`pool_phase`):
+``StreamPool`` over the sliding-CMVN pipeline on 4096 slots, 256 of them
+recycled every tick, timed beside the bare step and profiled, its
+recycled and untouched slots bit for bit against a zeros-prefix oracle;
+the corpus pipeline (:func:`corpus_phase`): ``python -m
+tpufeat_torch.pipeline`` over 256 WAVs to an ark, every utterance against
+``extract`` of it alone, and ``extract_corpus`` with its upload and fetch
+knobs on and off; and the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
 the mode's bound, ``full`` and ``allhighest`` launched twice for the same
@@ -210,6 +222,13 @@ def twin_of(module, name: str):
     return mock.patch.object(module, name, getattr(module, f"{name}_reference"))
 
 
+def ragged_lengths(n: int, batch: int) -> np.ndarray:
+    """The kaldi39 and families phases' lengths: row 0 whole, the others
+    uniform in [n // 100, n) (seed 39)."""
+    rng = np.random.default_rng(39)
+    return np.concatenate([[n], rng.integers(n // 100, n, batch - 1)])
+
+
 def kaldi39_phase(sig: np.ndarray, streams: int, steps: int,
                   reset_counts, read_counts, card: str,
                   device: str = "cuda") -> dict:
@@ -232,8 +251,7 @@ def kaldi39_phase(sig: np.ndarray, streams: int, steps: int,
     from tpufeat_torch.reference import cpu
 
     B, n = sig.shape
-    rng = np.random.default_rng(39)
-    lengths = np.concatenate([[n], rng.integers(n // 100, n, B - 1)])
+    lengths = ragged_lengths(n, B)
     x = torch.from_numpy(sig).to(device)
     lx = torch.from_numpy(lengths).to(device)
     errs = {"signal_mma": 0.0, "signal_mma_highest": 0.0}
@@ -382,6 +400,498 @@ def kaldi39_phase(sig: np.ndarray, streams: int, steps: int,
           f"real-time budget, runs {['%.3f' % t for t in times['step']]}, "
           f"peak memory {peak['step'] / 2**20:.0f} MiB [{card}]")
     return errs
+
+
+def idle_share(fn, calls: int) -> tuple[float, float, float]:
+    """(wall ms, device ms, idle share) per call of ``fn`` over ``calls``
+    calls under torch.profiler: the device time is the summed self time
+    of the CUDA kernel and copy rows of ``key_averages()``
+    (``tpufeat_torch.profile_stream``'s reading)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / calls
+    return wall, device, 1.0 - device / wall
+
+
+def families_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
+                   device: str = "cuda", reps: int = REPS,
+                   pncc_reps: int = 3) -> dict:
+    """The other front-end families through ``extract`` on the batch
+    ``sig`` with the kaldi39 phase's ragged lengths: FBANK80, WHISPER128,
+    GFCC13, FBANK80 with VTLN (warp 1.1), PLP13 (K1 with log "none", 23
+    bands) and PNCC13 (40 gammatone bands) with the fused flags at bf16x3
+    and "highest", and SPEC257 on the plain path (it has no kernel route).
+    Each: K1's launches, K1 against its twin at these shapes (for raw
+    energies also elementwise against the bound that replaces the
+    tolerance's max-scaled 1e-4: the sum-order bound plus 1e-4 of each
+    energy), rows 0 and 1 against the float64 golden, and the call timed
+    (CUDA events, median of ``reps``, PNCC's of ``pncc_reps``). Returns
+    the largest K1-vs-twin error of the log-domain outputs per row of the
+    kernels line."""
+    from tpufeat_torch import (FBANK80, GFCC13, WHISPER128, extract,
+                               framing)
+    from tpufeat_torch.config import PLP13, PNCC13, SPEC257
+    from tpufeat_torch.kernels import signal
+    from tpufeat_torch.kernels import _tolerance as tolerance
+    from tpufeat_torch.reference import cpu
+
+    B, n = sig.shape
+    lengths = ragged_lengths(n, B)
+    x = torch.from_numpy(sig).to(device)
+    lx = torch.from_numpy(lengths).to(device)
+    audio = float(lengths.sum()) / SR
+    errs = {"signal_mma": 0.0, "signal_mma_highest": 0.0}
+    bases = {"fbank80": FBANK80, "whisper128": WHISPER128,
+             "gfcc13": GFCC13,
+             "fbank80_vtln": dataclasses.replace(FBANK80, vtln_warp=1.1),
+             "plp13": PLP13, "pncc13": PNCC13}
+    cfgs = {f"{name} {prec}": dataclasses.replace(
+        base, **dict(FUSED, matmul_precision=prec))
+        for name, base in bases.items() for prec in ("bf16x3", "highest")}
+    cfgs["spec257 plain"] = SPEC257
+    gold = {}
+    for name, cfg in cfgs.items():
+        family = name.split()[0]
+        kernel = cfg.use_pallas
+        hi = cfg.matmul_precision == "highest"
+        reset_counts()
+        res = extract(x, lx, cfg)
+        torch.cuda.synchronize()
+        read_counts(f"families extract ({name})",
+                    {"signal_features_mma": 1} if kernel else {},
+                    highest=hi)
+        feats, nf = res.features, res.num_frames.cpu()
+        check(feats.shape == (B, cfg.num_frames(n), cfg.feature_dim),
+              f"families {name} shape {tuple(feats.shape)}")
+        check(torch.equal(nf, framing.num_frames_dynamic(
+            torch.from_numpy(lengths), cfg).to(torch.int32)),
+            f"families {name} frame counts")
+        check(bool(torch.isfinite(feats[res.mask]).all()),
+              f"families {name} finite")
+        line = f"families {name}:"
+        if kernel:
+            xx = framing.preemphasize(x, cfg.preemphasis) \
+                if cfg.preemphasis and not cfg.kaldi_mode else x
+            buf = framing.framing_buffer(xx, lx, cfg)[0].contiguous()
+            F = cfg.num_frames(n)
+            got = signal.signal_features(buf, F, cfg)
+            want = signal.signal_features_reference(buf, F, cfg)
+            frames = framing.frames_from_buffer(buf, F, cfg.frame_length,
+                                                cfg.hop_length)
+            a = tolerance.compare_to_twin(got, want, frames, cfg,
+                                          what=f"families K1 ({name})")
+            line += (f" K1 vs twin max_abs_err={a.max_abs_err:.3e} "
+                     f"scaled={a.scaled:.3e}")
+            if cfg.log == "none":
+                # raw energies: each band against its own size
+                flat = frames.reshape(-1, frames.shape[-1])
+                worst = 0.0
+                for r0 in range(0, flat.shape[0], tolerance.TWIN_ROWS):
+                    t = tolerance.twin_stages(
+                        flat[r0:r0 + tolerance.TWIN_ROWS], cfg, True)
+                    bnd = tolerance.sum_order_bound(t, cfg)
+                    w = want.reshape(-1, want.shape[-1])[
+                        r0:r0 + tolerance.TWIN_ROWS].double()
+                    g = got.reshape(-1, got.shape[-1])[
+                        r0:r0 + tolerance.TWIN_ROWS].double()
+                    ratio = ((g - w).abs() / (bnd + tolerance.TOL_TWIN
+                                              * w.abs())).max().item()
+                    worst = max(worst, ratio)
+                    del t, bnd
+                line += (f" (raw {cfg.n_mels} energies: error up to "
+                         f"{worst:.3f} x each band's bound)")
+                check(worst <= 1.0, f"families {name}: raw energies past "
+                      f"their bound ({worst:.3f} x)")
+            else:
+                row = "signal_mma_highest" if hi else "signal_mma"
+                errs[row] = max(errs[row], a.max_abs_err)
+            del got, want, frames, buf
+        for i in (0, 1):
+            key = (family, i)
+            if key not in gold:
+                gold[key] = cpu.extract(
+                    sig[i, :lengths[i]].astype(np.float64), cfg)
+            g = gold[key]
+            got = feats[i, :int(nf[i])].double().cpu().numpy()
+            check(got.shape == g.shape, f"families {name} row {i} shape")
+            d = np.abs(got - g)
+            scale = max(1.0, np.abs(g).max())
+            if family == "plp13":
+                limit = (5e-3, 2e-4) if not hi else (2e-3, None)
+                ok = d.max() < limit[0] and (limit[1] is None
+                                             or np.median(d) < limit[1])
+                what = (f"max {d.max():.3e} median {np.median(d):.3e} "
+                        f"(limits {limit[0]}, {limit[1]})")
+            elif family == "pncc13" and hi:
+                ok, what = d.max() < 2e-3, f"max {d.max():.3e} (limit 2e-3)"
+            elif family == "pncc13":
+                # bf16x3 moves the energies by about 2^-16, enough to flip
+                # the excitation switch (Q >= 2 Qle) of a frame near it,
+                # in the reference package too: no limit here
+                ok = True
+                what = (f"max {d.max():.3e} median {np.median(d):.3e}, "
+                        f"{int((d.max(axis=1) > 5e-3).sum())} of "
+                        f"{d.shape[0]} frames past 5e-3 (no limit: bf16x3)")
+            elif family == "spec257":
+                # a bin's log power carries the f32 transform's error
+                # relative to the frame's peak bins: 1e-3 of the log does
+                # not hold for bins 8 decades down (the reference's is
+                # further off on these rows), so the bins are held in
+                # power relative to each frame's peak; element 0 is the
+                # log frame energy. 2e-6: an f32 transform of 512 points
+                # rounds to about log2(512) 2^-24 of the frame's amplitude,
+                # some 1e-6 of its peak power
+                p_got, p_gold = np.exp(got[:, 1:]), np.exp(g[:, 1:])
+                rel = (np.abs(p_got - p_gold)
+                       / p_gold.max(axis=1, keepdims=True)).max()
+                ok = rel <= 2e-6 and d[:, 0].max() <= TOL_GOLDEN
+                what = (f"power rel. to the frame's peak {rel:.3e} (limit "
+                        f"2e-6), log energy {d[:, 0].max():.3e} (limit "
+                        f"{TOL_GOLDEN}), log power {d.max():.3e} (no limit)")
+            elif hi:
+                ok = d.max() / scale <= TOL_GOLDEN
+                what = f"scaled {d.max() / scale:.3e} (limit {TOL_GOLDEN})"
+            else:
+                ok, what = True, f"scaled {d.max() / scale:.3e} (no limit: " \
+                    f"bf16x3)"
+            line += f"{';' if kernel or i else ''} row {i} vs golden {what}"
+            check(ok, f"families {name} row {i} vs golden: {what}")
+        print(line)
+        del res, feats
+        ms, times, peak = time_paths(
+            {"extract": functools.partial(extract, x, lx, cfg)},
+            pncc_reps if family == "pncc13" else reps)
+        print(f"families {name}: extract {ms['extract']:.3f} ms per batch "
+              f"of {B} ragged (RTFx {audio / (ms['extract'] / 1e3):.0f}), "
+              f"{'1 K1 launch' if kernel else 'no kernel'}, runs "
+              f"{['%.3f' % t for t in times['extract']]}, peak memory "
+              f"{peak['extract'] / 2**20:.0f} MiB [{card}]", flush=True)
+    return errs
+
+
+def pool_phase(streams: int, churn_ticks: int, churn: int, reset_counts,
+               read_counts, card: str, device: str = "cuda") -> None:
+    """``StreamPool`` over ``StreamingPipeline(KALDI39, cmvn="sliding")``
+    with the fused flags at "highest": ``streams`` slots leased, then
+    ``churn_ticks`` ticks of 100 ms chunks through ``process_batch``, each
+    but the first detaching ``churn`` slots of the first half and leasing
+    them again for new streams; each tick timed, then the bare pipeline
+    step on the same blocks, then ten more ticks under torch.profiler for
+    the device's idle share. The check runs the same schedule again beside
+    an oracle, a pipeline of the same size whose recycled rows were fed
+    zeros up to their last lease, and goes on without churn until every
+    recycled slot is past its warmup_rows: the untouched slots equal the
+    oracle bit for bit on every row, the recycled ones on every row past
+    warmup_rows but those of the tick that crosses it, whose sliding-CMVN
+    step also sums rows before it (held to TOL_STREAM)."""
+    from tpufeat_torch import KALDI39, StreamingPipeline, streaming
+
+    cfg = dataclasses.replace(KALDI39, cmvn="sliding",
+                              **dict(FUSED, **HIGHEST))
+    half = streams // 2
+
+    def leased(k: int) -> list:
+        """The slots tick k detaches and leases again."""
+        if not 0 < k < churn_ticks:
+            return []
+        return [((k - 1) * churn + j) % half for j in range(churn)]
+
+    def blocks(seed: int = 6):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        while True:
+            yield torch.randn(streams, CHUNK, generator=gen,
+                              device=device) * 0.1
+
+    def tick(pool, k, block):
+        slots = leased(k)
+        for s in slots:
+            pool.detach(s)
+        for _ in slots:
+            pool.attach()
+        return pool.process_batch(block)
+
+    # the timed run: the pool's ticks, then the bare step on their blocks
+    pool = streaming.StreamPool(StreamingPipeline(cfg, streams,
+                                                  device=device))
+    for _ in range(streams):
+        pool.attach()
+    feed = blocks()
+    tick_ms = []
+    reset_counts()
+    for k in range(churn_ticks):
+        block = next(feed)
+        tick_ms.append(cuda_ms(functools.partial(tick, pool, k, block)))
+    torch.cuda.synchronize()
+    read_counts(f"pool, {churn_ticks} ticks of {streams} slots ({churn} "
+                f"recycled a tick)", {"signal_features_mma": churn_ticks},
+                highest=True)
+    bare = StreamingPipeline(cfg, streams, device=device)
+    feed = blocks()
+    bare_ms = [cuda_ms(functools.partial(bare.process, next(feed)))
+               for _ in range(churn_ticks)]
+    budget_ms = 1e3 * CHUNK / SR
+    t, b = statistics.median(tick_ms[1:]), statistics.median(bare_ms[1:])
+    print(f"pool tick (detach + attach {churn} slots, process_batch): "
+          f"median {t:.3f} ms for {streams} slots x {CHUNK} samples, "
+          f"{100 * t / budget_ms:.2f} % of the {budget_ms:.0f} ms budget; "
+          f"the bare pipeline step on the same blocks {b:.3f} ms; ticks "
+          f"{['%.3f' % v for v in tick_ms]}, bare steps "
+          f"{['%.3f' % v for v in bare_ms]} [{card}]")
+    more = iter(range(churn_ticks, 10 ** 9))
+    extra = blocks(60)
+    wall, dev, idle = idle_share(
+        lambda: tick(pool, 1 + next(more) % (churn_ticks - 1),
+                     next(extra)), 10)
+    print(f"pool tick under torch.profiler: wall {wall:.3f} ms, device "
+          f"{dev:.3f} ms, idle share {idle:.3f} [{card}]")
+    del pool, bare
+
+    # the check: the same schedule beside the zeros-prefix oracle
+    last = np.zeros(streams, np.int64)        # each slot's last lease
+    for k in range(churn_ticks):
+        last[leased(k)] = k
+    pipe = StreamingPipeline(cfg, streams, device=device)
+    pool = streaming.StreamPool(pipe)
+    for _ in range(streams):
+        pool.attach()
+    oracle = StreamingPipeline(cfg, streams, device=device)
+    warm = pipe.warmup_rows
+    steady = -(-(warm + cfg.delta_order * cfg.delta_window)
+               // (CHUNK // cfg.hop_length)) + 2
+    untouched = torch.from_numpy(last == 0).to(device)
+    feed = blocks()
+    n_untouched = n_recycled = n_crossing = 0
+    crossing_err = 0.0
+    for k in range(churn_ticks + steady):
+        block = next(feed)
+        zblock = torch.where(torch.from_numpy(last > k).to(device)[:, None],
+                             0.0, block)
+        out, skips = tick(pool, k, block).block()
+        want = oracle.process(zblock)
+        n = out.shape[1]
+        check(out.shape == want.shape, f"pool tick {k} shape")
+        if n == 0:
+            continue
+        check(torch.equal(out[untouched], want[untouched]),
+              f"pool tick {k}: an untouched slot differs from the oracle")
+        n_untouched += int(untouched.sum()) * n
+        skip = torch.tensor([skips[s] for s in range(streams)],
+                            device=device)
+        mine = ~untouched & torch.from_numpy(last <= k).to(device)
+        whole = mine & (skip == 0)
+        check(torch.equal(out[whole], want[whole]),
+              f"pool tick {k}: a recycled slot past its warmup differs "
+              f"from the zeros-prefix oracle")
+        n_recycled += int(whole.sum()) * n
+        for s in torch.nonzero(mine & (skip > 0) & (skip < n)).flatten():
+            s = int(s)
+            n_crossing += n - skips[s]
+            crossing_err = max(crossing_err, scaled_err(
+                out[s, skips[s]:], want[s, skips[s]:])[1])
+    torch.cuda.synchronize()
+    recycled = int((last > 0).sum())
+    print(f"pool check, the same {churn_ticks} ticks then {steady} without "
+          f"churn: {int(untouched.sum())} untouched slots bit-identical to "
+          f"the oracle on {n_untouched} rows; {recycled} recycled slots "
+          f"bit-identical to the zeros-prefix oracle on {n_recycled} rows "
+          f"past warmup_rows ({warm}); {n_crossing} rows of the crossing "
+          f"ticks within {crossing_err:.3e} scaled (limit {TOL_STREAM}) "
+          f"[{card}]")
+    check(n_recycled >= recycled * 10, f"pool: only {n_recycled} recycled "
+          f"rows were checked")
+    check(crossing_err <= TOL_STREAM,
+          f"pool crossing rows {crossing_err:.3e}")
+
+
+def shipped_pass(wav_dir: str, cfg, batch: int, device: str) -> float:
+    """One pass of ``extract_corpus``; returns its decode seconds."""
+    from tpufeat_torch import pipeline
+    stats = {}
+    for _ in pipeline.extract_corpus(wav_dir, cfg, batch, stats=stats,
+                                     device=device):
+        pass
+    return stats["decode_s"]
+
+
+def option_pass(plans, cfg, compact: bool, overlap: bool,
+                device: str) -> float:
+    """One pass of the corpus pipeline's loop (decode one batch ahead on a
+    host thread into a pinned arena, a non_blocking upload, ``extract``,
+    the fetch) with the reference's two options: ``compact`` uploads the
+    arena as int16 where that is exact, ``overlap`` fetches a batch's
+    features on a side stream and takes them after the next batch is
+    dispatched. Returns the decode seconds."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpufeat_torch import extract, pipeline
+
+    def prep(plan):
+        t0 = time.perf_counter()
+        entries, width, rows, rate = plan
+        arena, lengths = pipeline._decode_batch(entries, width, rows, rate)
+        if compact:
+            q = np.round(arena * 32768.0)
+            q16 = q.astype(np.int16)
+            if q.min() >= -32768 and q.max() <= 32767 and \
+                    (q16.astype(np.float32) / 32768.0 == arena).all():
+                arena = q16
+        host = torch.from_numpy(arena)
+        return (host.pin_memory() if cuda else host, lengths,
+                time.perf_counter() - t0)
+
+    cuda = torch.device(device).type == "cuda"
+    side = torch.cuda.Stream() if overlap and cuda else None
+    pending, decode_s = None, 0.0
+
+    def take(fetched):
+        event, feats, nf = fetched
+        event.synchronize()
+        return feats.numpy(), nf.numpy()
+
+    with ThreadPoolExecutor(1) as pool:
+        ahead = pool.submit(prep, plans[0])
+        for i in range(len(plans)):
+            host, lengths, dt = ahead.result()
+            decode_s += dt
+            if i + 1 < len(plans):
+                ahead = pool.submit(prep, plans[i + 1])
+            res = extract(host.to(device, non_blocking=True),
+                          torch.from_numpy(lengths).to(device), cfg)
+            if side is None:
+                res.features.cpu().numpy(), res.num_frames.cpu().numpy()
+                continue
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                feats = torch.empty(res.features.shape, pin_memory=True)
+                nf = torch.empty(res.num_frames.shape,
+                                 dtype=res.num_frames.dtype, pin_memory=True)
+                feats.copy_(res.features, non_blocking=True)
+                nf.copy_(res.num_frames, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+            res.features.record_stream(side)
+            res.num_frames.record_stream(side)
+            if pending is not None:
+                take(pending)
+            pending = (event, feats, nf)
+    if pending is not None:
+        take(pending)
+    return decode_s
+
+
+def corpus_phase(files: int, reset_counts, read_counts, card: str,
+                 device: str = "cuda", batch: int = 64) -> dict:
+    """The corpus pipeline: ``files`` PCM16 WAVs of seeded noise, lengths
+    uniform in 1-30 s (seed 8), written to a temporary directory; ``python
+    -m tpufeat_torch.pipeline DIR OUT.ark --preset kaldi39 --fused`` run
+    to an ark, read back with ``feats_io`` and every utterance held
+    against ``extract`` of that utterance alone; then, in this process,
+    ``extract_corpus`` and the pipeline's loop with the reference's int16
+    upload and overlapped fetch on and off (:func:`option_pass`), two
+    passes of each in turns: RTFx (audio seconds over wall seconds), the
+    decode thread's share of the wall time, and the device's idle share in
+    a profiled pass. Returns the wall seconds of each."""
+    import os
+    import tempfile
+    import time
+
+    from tpufeat_torch import KALDI39, extract, feats_io, io, pipeline
+
+    cfg = dataclasses.replace(KALDI39, **FUSED)   # --fused: bf16x3
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(1 * SR, 30 * SR + 1, files)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        for i, n in enumerate(lengths):
+            io.write_wav(os.path.join(wav_dir, f"u{i:03d}.wav"),
+                         (rng.standard_normal(n) * 0.1).astype(np.float32),
+                         SR)
+        audio = float(lengths.sum()) / SR
+        ark = os.path.join(tmp, "feats.ark")
+        cmd = [sys.executable, "-m", "tpufeat_torch.pipeline", wav_dir, ark,
+               "--preset", "kaldi39", "--fused", "--batch", str(batch),
+               "--repeat", "2", "--device", device]
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        whole = time.perf_counter() - t0
+        check(r.returncode == 0, f"python -m tpufeat_torch.pipeline exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        report = json.loads(r.stdout.strip().splitlines()[-1])
+        print(f"corpus: python -m tpufeat_torch.pipeline over {files} WAVs "
+              f"({audio:.1f} s of audio) --preset kaldi39 --fused: "
+              f"{json.dumps(report)}; the command took {whole:.2f} s "
+              f"[{card}]")
+        utts = feats_io.read_kaldi_ark(ark)
+        check(sorted(utts) == [f"u{i:03d}" for i in range(files)],
+              f"corpus ark keys ({len(utts)})")
+        same, worst = 0, 0.0
+        for i in range(files):
+            x, rate = io.read_wav(os.path.join(wav_dir, f"u{i:03d}.wav"))
+            want = extract(x, cfg=cfg, device=device).features.cpu()
+            got = torch.from_numpy(utts[f"u{i:03d}"])
+            check(got.shape == want.shape, f"corpus u{i:03d} shape "
+                  f"{tuple(got.shape)} vs {tuple(want.shape)}")
+            same += bool(torch.equal(got, want))
+            worst = max(worst, scaled_err(got, want)[1])
+        torch.cuda.synchronize()
+        print(f"corpus ark vs extract of each utterance alone: {same} of "
+              f"{files} bit-identical, the rest within {worst:.3e} scaled "
+              f"(limit {TOL_STREAM})")
+        check(worst <= TOL_STREAM, f"corpus vs per-utterance {worst:.3e}")
+        del utts
+
+        # the shipped pipeline, then the reference's two options on the same
+        # loop: "int16" uploads an arena as int16 where that is exact,
+        # "overlap" fetches batch k on a side stream after batch k+1 is
+        # dispatched; "f32 serial" is the shipped loop again (the control)
+        plans = pipeline._plan_batches(pipeline._scan_corpus(wav_dir), batch)
+        runs = {"shipped": functools.partial(shipped_pass, wav_dir, cfg,
+                                             batch, device)}
+        for compact, overlap in itertools.product((False, True), repeat=2):
+            name = (f"{'int16' if compact else 'f32'} "
+                    f"{'overlap' if overlap else 'serial'}")
+            runs[name] = functools.partial(option_pass, plans, cfg, compact,
+                                           overlap, device)
+        walls = {name: [] for name in runs}
+        decode = {name: [] for name in runs}
+        reset_counts()
+        runs["shipped"]()                          # warm
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                t0 = time.perf_counter()
+                decode[name].append(runs[name]())
+                walls[name].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        read_counts("corpus passes", {"signal_features_mma": (
+            1 + 2 * len(runs)) * len(plans)})
+        out = {}
+        for name, run in runs.items():
+            wall = statistics.mean(walls[name])
+            _, dev, idle = idle_share(run, 1)
+            out[name] = wall
+            print(f"corpus pass, {name}: wall {wall:.3f} s (passes "
+                  f"{['%.3f' % w for w in walls[name]]}), RTFx "
+                  f"{audio / wall:.0f}, decode share "
+                  f"{statistics.mean(decode[name]) / wall:.3f}, device "
+                  f"{dev:.1f} ms a pass, idle share {idle:.3f} (profiled "
+                  f"pass) [{card}]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1102,6 +1612,15 @@ def main() -> int:
                                   read_counts, card).items():
         kernel_rows[row]["max_abs_err"] = max(
             kernel_rows[row]["max_abs_err"], err)
+
+    # 9b-d. the other front-end families on the same batch; the stream pool
+    # at serving size; the corpus pipeline over a directory of WAVs
+    for row, err in families_phase(sig, reset_counts, read_counts,
+                                   card).items():
+        kernel_rows[row]["max_abs_err"] = max(
+            kernel_rows[row]["max_abs_err"], err)
+    pool_phase(STREAMS, STEPS, 256, reset_counts, read_counts, card)
+    corpus_phase(256, reset_counts, read_counts, card)
 
     # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its

@@ -162,7 +162,7 @@ def test_kernel_corners_match_golden(variant, flags):
                    jcfg)
 
 
-@pytest.mark.parametrize("name", sorted(set(JPRESETS) - {"pncc13"}))
+@pytest.mark.parametrize("name", sorted(JPRESETS))
 def test_golden_copy_matches_tpufeat_golden(name):
     """The port's float64 golden is the same numpy code: equal bits."""
     x = _batch(seed=11)[1, :LENGTHS[1]].astype(np.float64)
@@ -172,8 +172,14 @@ def test_golden_copy_matches_tpufeat_golden(name):
 
 
 def test_golden_copy_refuses_pncc():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcpu.extract(np.zeros(4000), _port(JPRESETS["pncc13"]))
+    """The port's golden used to refuse PNCC13; it computes it now, from
+    the constants of ``tpufeat_torch.pncc``, as the reference's golden
+    does from ``tpufeat.pncc``'s."""
+    x = _batch(seed=12)[0, :8000].astype(np.float64)
+    got = tcpu.extract(x, _port(JPRESETS["pncc13"]))
+    assert got.shape == (48, 13) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jcpu.extract(x, JPRESETS["pncc13"]),
+                               rtol=0, atol=1e-12)
 
 
 def test_padding_is_inert():
@@ -300,9 +306,20 @@ def test_use_energy_matches_tpufeat_and_golden(variant, flags):
     dict(dither=1.0), dict(n_mels=0, n_mfcc=0),
 ], ids=["plp", "pncc", "dither", "spectrogram"])
 def test_unported_configs_raise(change):
+    """These configs were refused until the port reached them: each now
+    extracts finite features of its dimension, and dither raises only
+    without the generator it draws from (as the reference raises without
+    its PRNG key)."""
     cfg = dataclasses.replace(_port(JPRESETS["mfcc13"]), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfeat.extract(_batch(seed=8)[:1, :4000], cfg=cfg, device="cpu")
+    x = _batch(seed=8)[:1, :4000]
+    generator = None
+    if cfg.dither > 0:
+        with pytest.raises(ValueError, match="generator"):
+            tfeat.extract(x, cfg=cfg, device="cpu")
+        generator = torch.Generator().manual_seed(8)
+    res = tfeat.extract(x, cfg=cfg, device="cpu", generator=generator)
+    assert res.features.shape == (1, 23, cfg.feature_dim)
+    assert torch.isfinite(res.features).all()
 
 
 def test_wav_roundtrip_matches_tpufeat(tmp_path):

@@ -1,0 +1,452 @@
+"""The port's host tools against the reference's: ``tpufeat_torch.data``
+against ``tpufeat.data``, the CLI (``tpufeat_torch.cli.main``) against
+``tpufeat.cli.main`` and the corpus pipeline
+(``tpufeat_torch.pipeline.extract_corpus`` / ``main``) against
+``tpufeat.pipeline``, on WAV directories written by
+``tpufeat_torch.io.write_wav`` into ``tmp_path``; and the three defects of
+the reference's corpus pipeline that the port does not copy.
+
+Tolerances: outputs of the same config on the plain path, <= 1e-4 scaled
+by max(1, |want|.max()) (the same f32 arithmetic in another order); corpus
+statistics, LDA transforms and batching helpers, exact or float64
+rounding. Everything runs on the CPU (``--device cpu``).
+"""
+
+import dataclasses
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from tpufeat import cli as jcli
+from tpufeat import data as jdata
+from tpufeat import feats_io as jfeats_io
+from tpufeat import pipeline as jpipeline
+from tpufeat.config import PRESETS as JPRESETS
+
+from tpufeat_torch import cli, data, feats_io, io, pipeline
+from tpufeat_torch.config import KALDI39, MFCC13_HTK, PRESETS
+
+TOL = 1e-4
+
+
+def _scaled(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if got.size == 0:
+        return 0.0
+    return np.abs(got - want).max() / max(1.0, np.abs(want).max())
+
+
+def _wav_dir(root, lengths, seed=0, sub=None):
+    """PCM16 WAVs of noise and a tone at the given lengths; returns the
+    paths in sorted order."""
+    rng = np.random.default_rng(seed)
+    d = os.path.join(str(root), sub) if sub else str(root)
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for i, n in enumerate(lengths):
+        t = np.arange(n) / 16000.0
+        x = 0.3 * np.sin(2 * np.pi * (200 + 50 * i) * t) \
+            + 0.05 * rng.standard_normal(n)
+        p = os.path.join(d, f"u{i:02d}.wav")
+        io.write_wav(p, x.astype(np.float32), 16000)
+        paths.append(p)
+    return sorted(paths)
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+def test_batching_helpers_match_reference(tmp_path):
+    rng = np.random.default_rng(1)
+    sigs = [rng.standard_normal(n).astype(np.float32)
+            for n in (16000, 9000, 31000, 16001, 4000, 23000)]
+    for n in (100, 16000, 16001, 22627, 22628, 500000):
+        assert data.bucket_length(n) == jdata.bucket_length(n)
+    for got, want in zip(data.pad_batch(sigs), jdata.pad_batch(sigs)):
+        np.testing.assert_array_equal(got, want)
+    for bucket in (False, True):
+        got = list(data.batched(sigs, 2, bucket=bucket))
+        want = list(jdata.batched(sigs, 2, bucket=bucket))
+        assert len(got) == len(want)
+        for (gx, gl), (wx, wl) in zip(got, want):
+            np.testing.assert_array_equal(gx, wx)
+            np.testing.assert_array_equal(gl, wl)
+    paths = _wav_dir(tmp_path, [8000, 4000, 6000], sub="a")
+    got = list(data.iter_wav_dir(str(tmp_path)))
+    want = list(jdata.iter_wav_dir(str(tmp_path)))
+    assert [g[0] for g in got] == [w[0] for w in want] == paths
+    for (_, gs, gr), (_, ws, wr) in zip(got, want):
+        np.testing.assert_array_equal(gs, ws)
+        assert gr == wr == 16000
+
+
+def test_frame_transforms_match_reference():
+    rng = np.random.default_rng(2)
+    feat = rng.standard_normal((2, 11, 4)).astype(np.float32)
+    nf = np.array([11, 6])
+    t = torch.from_numpy(feat)
+    np.testing.assert_array_equal(
+        data.splice_frames(t, torch.from_numpy(nf), 2, 3).numpy(),
+        np.asarray(jdata.splice_frames(feat, nf, 2, 3)))
+    out, counts = data.paste_feats([t, t[..., :2]], [nf, nf])
+    want, wcounts = jdata.paste_feats([feat, feat[..., :2]], [nf, nf])
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(counts.numpy(), wcounts)
+    with pytest.raises(ValueError, match="frame counts"):
+        data.paste_feats([t, t], [nf, nf + 1])
+    with pytest.raises(ValueError, match="disagree"):
+        data.paste_feats([t, t[:, :5]])
+    for factor, offset in ((1, 0), (3, 0), (3, 2)):
+        got, gnf = data.subsample_frames(t, torch.from_numpy(nf), factor,
+                                         offset)
+        want, wnf = jdata.subsample_frames(feat, nf, factor, offset)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(gnf.numpy(), wnf)
+    for cols in (4, 5):                      # linear, affine
+        mat = rng.standard_normal((3, cols)).astype(np.float32)
+        got = data.apply_transform(t, mat).numpy()
+        want = np.asarray(jdata.apply_transform(feat, mat))
+        assert _scaled(got, want) <= 1e-6
+    with pytest.raises(ValueError, match="transform"):
+        data.apply_transform(t, np.zeros((3, 7)))
+
+
+def test_lda_estimate_matches_reference():
+    """LdaStats has no file form: the same accumulated features give the
+    same transform."""
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((400, 6)) + np.repeat(
+        rng.standard_normal((4, 6)) * 3, 100, axis=0)
+    labels = np.repeat(np.arange(4), 100)
+    port, ref = data.LdaStats(6), jdata.LdaStats(6)
+    for lo in (0, 150):
+        port.accumulate(torch.from_numpy(feats[lo:lo + 250]),
+                        torch.from_numpy(labels[lo:lo + 250]))
+        ref.accumulate(feats[lo:lo + 250], labels[lo:lo + 250])
+    np.testing.assert_allclose(port.estimate(3), ref.estimate(3), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("ext", [".ark", ".npz"])
+def test_cmvn_stats_files_cross_load(tmp_path, ext):
+    rng = np.random.default_rng(4)
+    ref, port = jdata.CmvnStats(5), data.CmvnStats(5)
+    for _ in range(3):
+        f = rng.standard_normal((40, 5)) * 2 + 1
+        ref.accumulate(f)
+        port.accumulate(torch.from_numpy(f))
+    ref.save(str(tmp_path / f"ref{ext}"))
+    port.save(str(tmp_path / f"port{ext}"))
+    for loaded in (data.CmvnStats.load(str(tmp_path / f"ref{ext}")),
+                   jdata.CmvnStats.load(str(tmp_path / f"port{ext}"))):
+        assert loaded.count == ref.count
+        np.testing.assert_array_equal(loaded.sum, ref.sum)
+        np.testing.assert_array_equal(loaded.sumsq, ref.sumsq)
+    x = rng.standard_normal((7, 5)).astype(np.float32)
+    np.testing.assert_array_equal(
+        data.CmvnStats.load(str(tmp_path / f"ref{ext}")).apply(x, True),
+        ref.apply(x, True))
+    merged = data.CmvnStats(5).merge(port).merge(port)
+    assert merged.count == 2 * port.count
+
+
+# ---------------------------------------------------------------------------
+# cli
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def wavs(tmp_path):
+    return _wav_dir(tmp_path / "in", [16000, 9000])
+
+
+@pytest.mark.parametrize("preset,ext,extra", [
+    ("mfcc13", ".npy", []), ("whisper80", ".npz", []),
+    ("kaldi39", ".ark", []), ("mfcc13", ".htk", []),
+    ("plp13", ".htk", ["--htk-compress"]), ("fbank80", ".npz",
+                                            ["--set", "n_mels=40"]),
+    ("mfcc13", ".npz", ["--stream", "1600"]),
+], ids=["npy", "npz", "ark", "htk", "htk_plp_compressed", "set",
+        "stream"])
+def test_cli_matches_reference(wavs, tmp_path, preset, ext, extra):
+    ins = wavs[:1] if ext == ".npy" else wavs
+    outs = {}
+    for name, main in (("port", cli.main), ("reference", jcli.main)):
+        out = str(tmp_path / f"{name}{ext}")
+        argv = [*ins, out, "--preset", preset, *extra]
+        assert main(argv + (["--device", "cpu"] if name == "port"
+                            else [])) == 0
+        outs[name] = out
+    if ext == ".npy":
+        assert _scaled(np.load(outs["port"]), np.load(outs["reference"])) \
+            <= TOL
+    elif ext == ".npz":
+        with np.load(outs["port"]) as g, np.load(outs["reference"]) as w:
+            np.testing.assert_array_equal(g["mask"], w["mask"])
+            np.testing.assert_array_equal(g["lengths"], w["lengths"])
+            m = w["mask"]
+            assert _scaled(g["features"][m], w["features"][m]) <= TOL
+    elif ext == ".ark":
+        got = feats_io.read_kaldi_ark(outs["port"])
+        want = jfeats_io.read_kaldi_ark(outs["reference"])
+        assert list(got) == list(want) == ["u00", "u01"]
+        for k in got:
+            assert _scaled(got[k], want[k]) <= TOL
+    else:
+        for b in range(len(ins)):
+            p = [outs["port"].replace(ext, f".{b}{ext}"),
+                 outs["reference"].replace(ext, f".{b}{ext}")]
+            (gf, gs, gk), (wf, ws, wk) = (feats_io.read_htk(q) for q in p)
+            assert (gs, gk) == (ws, wk)
+            tol = TOL if "--htk-compress" not in extra else \
+                2 * (np.ptp(wf, axis=0).max() / 65534 + TOL)
+            assert _scaled(gf, wf) <= tol
+
+
+def test_cli_validate_time_and_profile(wavs, tmp_path, capsys):
+    prof = str(tmp_path / "prof")
+    assert cli.main([*wavs, str(tmp_path / "o.npz"), "--device", "cpu",
+                     "--validate", "--time", "--profile", prof]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    import json
+    timing, valid = json.loads(lines[-2]), json.loads(lines[-1])
+    assert timing["rtfx"] > 0 and timing["device"] == "cpu"
+    assert valid["max_abs_err"]["numpy_f64"] < 1e-3
+    assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
+
+
+def test_cli_refusals(wavs, tmp_path, monkeypatch):
+    out = str(tmp_path / "o.npy")
+    for flag, item in (("--resample", "item 9"), ("--pitch", "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main([wavs[0], out, flag, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown config field"):
+        cli.main([wavs[0], out, "--set", "nope=1", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main([wavs[0], out])
+    assert not os.path.exists(out)
+
+
+# ---------------------------------------------------------------------------
+# pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def corpus(tmp_path):
+    """Seven PCM16 files over three length buckets, one in a subdir."""
+    root = tmp_path / "corpus"
+    paths = _wav_dir(root, [16000, 9000, 20000, 12000, 30000, 4000],
+                     seed=5)
+    paths += _wav_dir(root, [17000], seed=6, sub="sub")
+    return str(root), sorted(paths)
+
+
+def test_extract_corpus_matches_reference(corpus):
+    root, paths = corpus
+    cfg = KALDI39
+    stats = {}
+    got = dict(pipeline.extract_corpus(root, cfg, batch_size=2, stats=stats,
+                                       device="cpu"))
+    want = dict(jpipeline.extract_corpus(root, JPRESETS["kaldi39"],
+                                         batch_size=2))
+    assert sorted(got) == sorted(want) == paths
+    for k in got:
+        assert _scaled(got[k], want[k]) <= TOL
+    assert stats["files"] == 7 and stats["batches"] >= 4
+    assert stats["n_shapes"] >= 3 and 0 < stats["padding_waste"] < 1
+    assert stats["decode_s"] > 0
+
+
+def test_extract_corpus_matches_per_utterance_extract(corpus):
+    from tpufeat_torch import features
+    root, _ = corpus
+    for key, feats in pipeline.extract_corpus(root, MFCC13_HTK,
+                                              batch_size=3, device="cpu"):
+        x, _ = io.read_wav(key)
+        want = features.extract(x, cfg=MFCC13_HTK, device="cpu").features
+        assert _scaled(feats, want) <= 1e-6
+
+
+def test_pipeline_main_ark_matches_reference(corpus, tmp_path, capsys):
+    root, _ = corpus
+    outs = {}
+    for name, main in (("port", pipeline.main), ("reference",
+                                                 jpipeline.main)):
+        out = str(tmp_path / f"{name}.ark")
+        argv = [root, out, "--preset", "mfcc13", "--batch", "4"]
+        assert main(argv + (["--device", "cpu"] if name == "port"
+                            else [])) == 0
+        outs[name] = feats_io.read_kaldi_ark(out)
+        assert os.path.exists(out[:-4] + ".scp")
+    assert list(outs["port"]) == list(outs["reference"])
+    for k in outs["port"]:
+        assert _scaled(outs["port"][k], outs["reference"][k]) <= TOL
+
+
+def test_pipeline_segments_and_utt2spk_cmvn(corpus, tmp_path):
+    """Per-segment features keyed by utterance, and per-speaker CMVN stats
+    written and applied, as the reference does."""
+    root, _ = corpus
+    seg = tmp_path / "segments"
+    seg.write_text("s1 u00 0.0 0.5\ns2 u00 0.25 1.0\ns3 sub/u00 0.1 1.0\n")
+    u2s = tmp_path / "utt2spk"
+    u2s.write_text("s1 A\ns2 B\ns3 A\n")
+    got = {}
+    for name, main in (("port", pipeline.main), ("reference",
+                                                 jpipeline.main)):
+        stats = str(tmp_path / f"{name}_cmvn.ark")
+        out = str(tmp_path / f"{name}.ark")
+        common = [root, "--segments", str(seg), "--utt2spk", str(u2s),
+                  "--preset", "mfcc13"]
+        dev = ["--device", "cpu"] if name == "port" else []
+        assert main([common[0], str(tmp_path / f"{name}_x.npz"),
+                     *common[1:], "--global-cmvn", stats, *dev]) == 0
+        assert main([common[0], out, *common[1:], "--apply-cmvn", stats,
+                     "--norm-vars", *dev]) == 0
+        got[name] = (feats_io.read_kaldi_ark(out),
+                     feats_io.read_kaldi_ark(stats))
+    (pf, ps), (rf, rs) = got["port"], got["reference"]
+    assert sorted(pf) == sorted(rf) == ["s1", "s2", "s3"]
+    for k in pf:
+        assert _scaled(pf[k], rf[k]) <= 1e-3      # after var normalization
+    assert sorted(ps) == sorted(rs) == ["A", "B"]
+    for k in ps:
+        assert _scaled(ps[k], rs[k]) <= TOL
+
+
+def test_pipeline_dither_generator(corpus):
+    root, _ = corpus
+    cfg = dataclasses.replace(PRESETS["fbank80"], dither=1.0)
+    with pytest.raises(ValueError, match="generator"):
+        next(pipeline.extract_corpus(root, cfg, device="cpu"))
+
+    def run(seed):
+        g = torch.Generator().manual_seed(seed)
+        return dict(pipeline.extract_corpus(root, cfg, batch_size=3,
+                                            generator=g, device="cpu"))
+    a, b, c = run(1), run(1), run(2)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+        assert np.abs(a[k] - c[k]).max() > 1e-3
+
+
+def test_pipeline_refuses_unported_options(corpus, tmp_path):
+    root, _ = corpus
+    for kw, item in ((dict(resample=True), "item 9"),
+                     (dict(ivector=object()), "item 11"),
+                     (dict(dp=True), "item 13")):
+        with pytest.raises(NotImplementedError, match=item):
+            next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
+                                         **kw))
+    out = str(tmp_path / "o.npz")
+    for flag, item in (("--resample", "item 9"), ("--dp", "item 13"),
+                       ("--fmllr-ubm", "item 11"),
+                       ("--ivector-extractor", "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            pipeline.main([root, out, flag, "--device", "cpu"])
+
+
+def test_pipeline_rate_mismatch_rejected(tmp_path):
+    io.write_wav(str(tmp_path / "a.wav"), np.zeros(8000, np.float32), 8000)
+    with pytest.raises(ValueError, match="not at 16000 Hz"):
+        list(pipeline.extract_corpus(str(tmp_path), MFCC13_HTK,
+                                     device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the reference's corpus-pipeline defects, not copied
+# ---------------------------------------------------------------------------
+
+def test_pcm16_minimum_round_trips(tmp_path):
+    """A file holding PCM16's -32768 (-1.0 exactly) reaches the card
+    exactly: its features are those of its samples alone, bit for bit.
+    (The reference's int16 compaction refused such arenas, whose check
+    took -32768 for out of range; the port uploads the decoded float32
+    arena, so no sample value is refused or altered.)"""
+    from tpufeat_torch import features
+    x = (np.random.default_rng(9).standard_normal(16000) * 0.3
+         ).astype(np.float32)
+    x[100:140] = -1.0
+    io.write_wav(str(tmp_path / "a.wav"), x, 16000)
+    samples, _ = io.read_wav(str(tmp_path / "a.wav"))
+    assert samples.min() == -1.0
+    (_, got), = pipeline.extract_corpus(str(tmp_path), MFCC13_HTK,
+                                        device="cpu")
+    want = features.extract(samples, cfg=MFCC13_HTK, device="cpu")
+    np.testing.assert_array_equal(got, want.features.numpy())
+    assert jpipeline._compact_arena(samples[None]).dtype == np.float32
+
+
+def test_device_time_leaves_out_the_consumer(corpus):
+    """device_s times upload, dispatch and the fetch, not the consumer's
+    work between items (the reference's timed window held its yields)."""
+    root, _ = corpus
+    stats = {}
+    start = time.perf_counter()
+    for _ in pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
+                                     stats=stats, device="cpu"):
+        time.sleep(0.2)                       # 7 items: 1.4 s of consumer
+    wall = time.perf_counter() - start
+    assert wall >= 1.4
+    assert stats["device_s"] < wall - 1.4 + 0.05
+
+
+def _decode_threads():
+    return [t for t in threading.enumerate()
+            if t.name == pipeline.DECODE_THREAD and t.is_alive()]
+
+
+def test_no_thread_outlives_an_abandoned_generator(corpus, monkeypatch):
+    root, _ = corpus
+    real = pipeline._decode_batch
+
+    def slow(*a, **kw):
+        time.sleep(0.3)
+        return real(*a, **kw)
+    monkeypatch.setattr(pipeline, "_decode_batch", slow)
+    gen = pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
+                                  device="cpu")
+    next(gen)                                 # batch 1 decodes meanwhile
+    assert _decode_threads()
+    gen.close()
+    assert not _decode_threads()
+
+
+def test_no_thread_outlives_a_failed_fetch(corpus, monkeypatch):
+    root, _ = corpus
+    real = pipeline._decode_batch
+    calls = []
+
+    def slow(*a, **kw):
+        time.sleep(0.3)
+        return real(*a, **kw)
+
+    real_rows = pipeline._rows
+
+    def boom(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("fetch failed")
+        return real_rows(*a, **kw)
+    monkeypatch.setattr(pipeline, "_decode_batch", slow)
+    monkeypatch.setattr(pipeline, "_rows", boom)
+    with pytest.raises(RuntimeError, match="fetch failed"):
+        list(pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
+                                     device="cpu"))
+    assert not _decode_threads()
+
+
+def test_decode_failure_names_the_file(corpus):
+    root, paths = corpus
+    with open(paths[3], "wb") as f:
+        f.write(b"RIFF\x00\x00\x00\x00WAVEjunk")
+    with pytest.raises(ValueError, match=os.path.basename(paths[3])):
+        list(pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
+                                     device="cpu"))
+    assert not _decode_threads()

@@ -125,9 +125,13 @@ class TestStreamingMechanics:
             streaming.StreamingFrontend(WHISPER80)
         with pytest.raises(ValueError):
             streaming.StreamingFrontend(FeatureConfig(deltas=True))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        # PLP streams (its tail is frame-local); PNCC is refused as the
+        # reference refuses it
+        streaming.StreamingFrontend(FeatureConfig(
+            n_mels=23, n_mfcc=0, log="none", plp_order=12), device="cpu")
+        with pytest.raises(ValueError, match="PNCC"):
             streaming.StreamingFrontend(FeatureConfig(
-                n_mels=23, n_mfcc=0, log="none", plp_order=12))
+                n_mels=40, n_mfcc=0, log="none", pncc=True), device="cpu")
 
     def test_batched_streams(self):
         sigs = np.stack([make_signal(4800, seed=50),

@@ -3,8 +3,8 @@
 ``extract`` takes a padded batch [B, N] (or one utterance [N]) with its true
 lengths and returns features, a validity mask and frame counts. Every
 length-dependent reduction (Whisper's per-utterance max, CMVN, the deltas'
-edge replication) sees valid frames only, so padding contents never leak
-into valid outputs.
+edge replication, PNCC's recursions) sees valid frames only, so padding
+contents never leak into valid outputs.
 
 With ``use_pallas + gemm_dft + fused_framing`` set, framing, DFT, mel, log
 and DCT run in ONE kernel (``kernels/signal.py``). With ``use_pallas``
@@ -13,10 +13,17 @@ alone the frames are built first and the staged kernels run
 ``torch.fft.rfft`` and the tail kernel. Each is the Hopper kernel for a
 CUDA tensor and its plain twin for a CPU tensor. Otherwise the plain torch
 composition runs (``torch.fft.rfft`` or the GEMM DFT, then mel, log, DCT),
-every product in fp32 (:func:`matmul`). Deltas and CMVN then run as plain
-torch ops (:func:`finish_impl`), as they do in the reference. Configs the
-port does not cover yet raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+every product in fp32 (:func:`matmul`); spectrogram features (``n_mels=0``)
+stop at the (log-)power spectrum and always take this route. PLP
+(``plp.py``) and PNCC (``pncc.py``) take the filterbank energies of any
+route (log "none"). Deltas and CMVN then run as plain torch ops
+(:func:`finish_impl`), as they do in the reference.
+
+Dither adds ``cfg.dither`` times standard normal noise to the raw samples,
+before pre-emphasis, drawn from the caller's ``torch.Generator`` on the
+signal's device: the same generator state gives the same noise, and a
+dithered call without a generator raises. The reference's JAX PRNG bits
+are not reproduced.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufeat_torch import framing, matrices, spectrum
+from tpufeat_torch import framing, matrices, plp, pncc, spectrum
 from tpufeat_torch.config import MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
 from tpufeat_torch.kernels import staged
@@ -39,22 +46,6 @@ class FeatureResult(NamedTuple):
     features: torch.Tensor
     mask: torch.Tensor
     num_frames: torch.Tensor
-
-
-def _refuse_unported(cfg: FeatureConfig) -> None:
-    """Raise for a config the port does not cover yet: it is refused, not
-    run some other way."""
-    unported = [
-        (cfg.plp_order > 0, "plp_order", "queue 1, item 7"),
-        (cfg.pncc, "pncc", "queue 1, item 7"),
-        (cfg.dither > 0, "dither", "queue 1, item 7"),
-        (cfg.n_mels == 0, "n_mels=0 (spectrogram features)",
-         "queue 1, item 7"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to tpufeat_torch yet: ROADMAP.md {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +326,11 @@ def _mel_filterbank(cfg: FeatureConfig) -> np.ndarray:
 def mel_log_dct_xla(spec: torch.Tensor, mask: torch.Tensor,
                     cfg: FeatureConfig) -> torch.Tensor:
     """Unfused tail: mel filterbank matmul -> log -> DCT (+lifter). The
-    name keeps its counterpart's; here it is plain torch."""
+    name keeps its counterpart's; here it is plain torch. ``n_mels == 0``
+    (spectrogram features, Kaldi compute-spectrogram-feats): no
+    filterbank, the (log-)power spectrum is the feature."""
+    if cfg.n_mels == 0:
+        return apply_log(spec, mask, cfg)
     logm = apply_log(matmul(spec, _mel_filterbank(cfg)), mask, cfg)
     if cfg.n_mfcc <= 0:
         return logm
@@ -373,7 +368,8 @@ def spectro_pipeline(frames: torch.Tensor, mask: torch.Tensor,
     by one-shot extraction and streaming. ``use_pallas`` (default: the
     flag, for a call with frames) routes to the staged kernels; else the
     plain path (GEMM DFT when ``gemm_dft``, else rfft), then mel -> log ->
-    DCT. ``use_energy`` then puts the log frame energy in."""
+    DCT. PLP, then PNCC, take the filterbank energies, and ``use_energy``
+    then puts the log frame energy in: the reference's order."""
     if use_pallas is None:
         use_pallas = cfg.use_pallas and frames.shape[-2] > 0
     if use_pallas:
@@ -385,9 +381,36 @@ def spectro_pipeline(frames: torch.Tensor, mask: torch.Tensor,
             w = _const(matrices.window(cfg.window, cfg.frame_length), frames)
             spec = spectrum.power_spectrum_rfft(frames * w, cfg)
         feat = mel_log_dct_xla(spec, mask, cfg)
+    feat = _cepstra(feat, mask, cfg)
     if cfg.use_energy:
         feat = _apply_energy(feat, frames, cfg)
     return feat
+
+
+def _cepstra(energies: torch.Tensor, mask: torch.Tensor,
+             cfg: FeatureConfig) -> torch.Tensor:
+    """The PLP or PNCC chain over the filterbank energies (log "none"),
+    frame-local or per utterance; any other config passes through."""
+    if cfg.plp_order > 0:
+        return plp.plp_from_energies(energies, cfg)
+    if cfg.pncc:
+        return pncc.pncc_from_power(energies, mask, cfg)
+    return energies
+
+
+def add_dither(x: torch.Tensor, cfg: FeatureConfig,
+               generator: torch.Generator | None) -> torch.Tensor:
+    """``x + cfg.dither * n``, n standard normal of x's shape drawn from
+    ``generator`` on x's device (the reference dithers the raw samples
+    with a PRNG key it requires); no change when dither is off."""
+    if cfg.dither <= 0:
+        return x
+    if generator is None:
+        raise ValueError("cfg.dither > 0 requires a generator: extract(..., "
+                         "generator=torch.Generator(device).manual_seed(s))")
+    noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                        device=x.device)
+    return x + cfg.dither * noise
 
 
 # ---------------------------------------------------------------------------
@@ -395,11 +418,15 @@ def spectro_pipeline(frames: torch.Tensor, mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def features_impl(x: torch.Tensor, lengths: torch.Tensor,
-                  cfg: FeatureConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raw batch [B, N] -> (per-frame features [B, F, D], mask [B, F])."""
-    _refuse_unported(cfg)
+                  cfg: FeatureConfig,
+                  generator: torch.Generator | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw batch [B, N] -> (per-frame features [B, F, D], mask [B, F]).
+    ``generator``: the dither's noise source, required iff cfg.dither > 0
+    (:func:`add_dither`)."""
     if x.dtype == torch.int16:
         x = x.to(torch.float32) / 32768.0
+    x = add_dither(x, cfg, generator)
     if cfg.preemphasis and not cfg.kaldi_mode:
         x = framing.preemphasize(x, cfg.preemphasis)
     F = cfg.num_frames(x.shape[-1])
@@ -415,6 +442,7 @@ def features_impl(x: torch.Tensor, lengths: torch.Tensor,
             feat = whisper_normalize(feat, mask)
             if cfg.n_mfcc > 0:
                 feat = dct_lifter(feat, cfg)
+        feat = _cepstra(feat, mask, cfg)
         if cfg.use_energy:
             frames = framing.frames_from_buffer(
                 buf, F, cfg.frame_length, cfg.hop_length)
@@ -499,7 +527,8 @@ def _prep(signal, lengths, device):
 
 
 def extract(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
-            device=None) -> FeatureResult:
+            device=None, generator: torch.Generator | None = None
+            ) -> FeatureResult:
     """WAV samples -> features. The public one-shot API.
 
     Args:
@@ -510,12 +539,14 @@ def extract(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
       cfg: a :class:`FeatureConfig`.
       device: where numpy input goes; default ``"cuda"``, and a call
         without a card raises unless it passes ``device="cpu"``.
+      generator: a ``torch.Generator`` on the signal's device, required
+        iff ``cfg.dither > 0``: the dither noise is drawn from it.
 
     Returns a :class:`FeatureResult`; for 1-D input the batch axis is
     squeezed away from ``features``/``mask``/``num_frames``.
     """
     x, lengths, single = _prep(signal, lengths, device)
-    feat, mask = features_impl(x, lengths, cfg)
+    feat, mask = features_impl(x, lengths, cfg, generator)
     res = finish_impl(feat, mask, lengths, cfg)
     if single:
         res = FeatureResult(res.features[0], res.mask[0], res.num_frames[0])
@@ -580,16 +611,18 @@ def mfcc(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
 
 
 def extract_chunked(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
-                    rows_per_dispatch: int = 128,
-                    device=None) -> FeatureResult:
+                    rows_per_dispatch: int = 128, device=None,
+                    generator: torch.Generator | None = None
+                    ) -> FeatureResult:
     """:func:`extract` over slices of at most ``rows_per_dispatch`` rows of
     the batch, concatenated: exact, since no stage couples utterances. It
-    bounds the device memory of one call on a very large batch."""
+    bounds the device memory of one call on a very large batch. With
+    dither, each slice draws its noise from ``generator`` in turn."""
     x, lengths, single = _prep(signal, lengths, device)
     parts = []
     for r in range(0, x.shape[0], rows_per_dispatch):
         rows = slice(r, r + rows_per_dispatch)
-        feat, mask = features_impl(x[rows], lengths[rows], cfg)
+        feat, mask = features_impl(x[rows], lengths[rows], cfg, generator)
         parts.append(finish_impl(feat, mask, lengths[rows], cfg))
     res = FeatureResult(*(torch.cat(p, dim=0) for p in zip(*parts)))
     if single:
@@ -597,10 +630,13 @@ def extract_chunked(signal, lengths=None, cfg: FeatureConfig = MFCC13_HTK,
     return res
 
 
-def make_extractor(cfg: FeatureConfig, device=None):
-    """A ``(signal, lengths=None) -> FeatureResult`` closure over ``cfg``
-    and ``device`` (default the card): :func:`extract` with both bound, for
-    a server that calls one configuration many times."""
-    def run(signal, lengths=None) -> FeatureResult:
-        return extract(signal, lengths, cfg, device)
+def make_extractor(cfg: FeatureConfig, device=None,
+                   generator: torch.Generator | None = None):
+    """A ``(signal, lengths=None, generator=None) -> FeatureResult``
+    closure over ``cfg`` and ``device`` (default the card): :func:`extract`
+    with both bound, for a server that calls one configuration many times.
+    ``generator`` is the dither's default noise source; a call may pass its
+    own."""
+    def run(signal, lengths=None, generator=generator) -> FeatureResult:
+        return extract(signal, lengths, cfg, device, generator)
     return run

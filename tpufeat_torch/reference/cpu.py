@@ -5,7 +5,7 @@ The numerical oracle against which the accelerated path is validated with
 max-abs-error, usable where jax is not installed (``chip_smoke.py`` on the
 GPU host). Everything is float64, stage-by-stage, written for auditability
 rather than speed. The goldens of the families the port has not reached yet
-(pitch, PNCC, the speaker stack, the models) arrive with their slices.
+(pitch, the speaker stack, the models) arrive with their slices.
 
 The radix-2 FFT here mirrors the reference's centerpiece OpenCL kernel
 (SURVEY.md §2 C5: iterative Cooley-Tukey, bit-reversal + log2(N) butterfly
@@ -29,6 +29,8 @@ __all__ = [
     "logmel",
     "mfcc",
     "plp",
+    "pncc",
+    "pncc_from_power",
     "deltas",
     "cmvn",
     "frame_energy",
@@ -378,6 +380,64 @@ def online_cmvn(feat: np.ndarray, window: int = 600,
     return out
 
 
+def pncc_from_power(p: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Float64 golden for :func:`tpufeat_torch.pncc.pncc_from_power` (one
+    utterance, [F, M] gammatone power -> [F, pncc_ceps]): plain loops over
+    the Kim & Stern 2012 equations with that module's constants."""
+    from tpufeat_torch import pncc as pn
+    p = np.asarray(p, np.float64)
+    F, M = p.shape
+    # medium-time power: clipped-window mean
+    q = np.empty_like(p)
+    for l in range(F):
+        lo, hi = max(0, l - pn.M_MED), min(F, l + pn.M_MED + 1)
+        q[l] = p[lo:hi].mean(axis=0)
+    # frame recursions
+    r = np.empty_like(q)
+    qle = 0.9 * q[0]
+    qf = np.maximum(q[0] - qle, 0.0)
+    qp = qf.copy()
+    for l in range(F):
+        if l > 0:
+            lam = np.where(q[l] >= qle, pn.LAMBDA_A, pn.LAMBDA_B)
+            qle = lam * qle + (1.0 - lam) * q[l]
+        q0 = np.maximum(q[l] - qle, 0.0)
+        if l > 0:
+            lam = np.where(q0 >= qf, pn.LAMBDA_A, pn.LAMBDA_B)
+            qf = lam * qf + (1.0 - lam) * q0
+        else:
+            qf = q0.copy()
+        qp_prev = q0.copy() if l == 0 else qp
+        qtm = np.where(q0 >= pn.LAMBDA_T * qp_prev, q0,
+                       pn.MU_T * qp_prev)
+        qp = np.maximum(pn.LAMBDA_T * qp_prev, q0)
+        r[l] = np.where(q[l] >= pn.C_EXC * qle, qtm, qf)
+    # spectral weight smoothing
+    w = r / np.maximum(q, 1e-20)
+    s_ = np.empty_like(w)
+    for m in range(M):
+        lo, hi = max(0, m - pn.N_SPEC), min(M, m + pn.N_SPEC + 1)
+        s_[:, m] = w[:, lo:hi].mean(axis=1)
+    t = p * s_
+    # mean power normalization
+    mu = np.empty(F)
+    for l in range(F):
+        tb = t[l].mean()
+        mu[l] = tb if l == 0 else (pn.LAMBDA_MU * mu[l - 1]
+                                   + (1.0 - pn.LAMBDA_MU) * tb)
+    u = t / np.maximum(mu[:, None], 1e-20)
+    v = np.maximum(u, cfg.log_floor) ** pn.POWER
+    out = v @ matrices.dct_matrix(M, cfg.pncc_ceps)
+    if cfg.lifter > 0:
+        out = out * matrices.lifter_vector(cfg.pncc_ceps, cfg.lifter)
+    return out
+
+
+def pncc(x: np.ndarray, cfg: FeatureConfig,
+         preemph_prev: float = 0.0) -> np.ndarray:
+    """Signal -> PNCC [n_frames, pncc_ceps]: the gammatone power through
+    :func:`logmel` with log "none", then the PNCC tail."""
+    return pncc_from_power(logmel(x, cfg, preemph_prev), cfg)
 
 
 def extract(x: np.ndarray, cfg: FeatureConfig,
@@ -388,9 +448,7 @@ def extract(x: np.ndarray, cfg: FeatureConfig,
     if cfg.plp_order > 0:
         base = plp(x, cfg, preemph_prev)
     elif cfg.pncc:
-        raise NotImplementedError(
-            "the PNCC golden arrives with the PNCC slice "
-            "(ROADMAP.md queue 1, item 7)")
+        base = pncc(x, cfg, preemph_prev)
     elif cfg.n_mfcc > 0:
         base = mfcc(x, cfg, preemph_prev)
     elif cfg.n_mels == 0:

@@ -38,20 +38,27 @@ The online config-3 wrappers follow: :class:`StreamingDeltas`, running
 CMVN (:func:`streaming_cmvn`), :class:`StreamingSlidingCMVN`,
 :class:`OnlineCmvn`, and :class:`StreamingPipeline`, which composes them
 behind the front-end. Their per-step functions are plain torch on the
-tensors of the front-end's output; the stream pool (``StreamPool``) is a
-later slice of the port (ROADMAP.md queue 1, item 6b).
+tensors of the front-end's output. :class:`StreamPool` leases the rows of
+one such wrapper to streams that start and end at different times
+(``reset_rows`` recycles a row in place), and :class:`PoolRows` hands a
+tick's output over as one batched tensor with per-slot trims.
+
+PLP streams like MFCC (its tail is frame-local: the static step's kernel
+emits the filterbank energies and ``plp.plp_from_energies`` follows);
+PNCC and dither are refused, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Mapping
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from tpufeat_torch import features, framing
+from tpufeat_torch import features, framing, plp
 from tpufeat_torch.config import KALDI39, MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
 
@@ -100,7 +107,6 @@ def _check_streamable(cfg: FeatureConfig) -> None:
             "across the whole utterance and its medium-time window looks "
             "2 frames ahead — a per-chunk step would silently reset them; "
             "use one-shot extract()")
-    features._refuse_unported(cfg)       # PLP, spectrogram features
 
 
 def init_state(batch_size: int = 1, cfg: FeatureConfig = MFCC13_HTK,
@@ -184,6 +190,8 @@ def process_chunk_static(state: StreamState, chunk: torch.Tensor,
         # layout for the same reason)
         feats = signal_kernel.signal_features(
             data.to(torch.float32).contiguous(), n_new, cfg)
+        if cfg.plp_order > 0:
+            feats = plp.plp_from_energies(feats, cfg)
     else:
         frames = framing.frames_from_buffer(data, n_new, fl, hop)
         frames = framing.condition_frames(frames, cfg)
@@ -992,6 +1000,7 @@ class StreamingPipeline:
                 raise ValueError(
                     f"online_cmvn dim {online_cmvn.dim} != pipeline "
                     f"feature_dim {cfg.feature_dim}")
+        self._stale: set[int] = set()     # rows reset_rows zeroes next
         # _fifos[0] holds base rows, _fifos[i] stage i-1's rows; the last
         # stage's rows are never queued: they drive the emission
         self._fifos = [torch.zeros(batch_size, 0, dim, device=self.device)
@@ -1051,6 +1060,7 @@ class StreamingPipeline:
         """[B, C] (or [C]) raw samples -> [B, n, out_dim] complete rows (n
         lags the input by delta_order * delta_window frames, and by the
         sliding CMVN's start-up delay)."""
+        self._reset_stale()
         base, _ = self.frontend.process(chunk)
         rows = base
         self._fifos[0] = torch.cat([self._fifos[0], base], dim=1)
@@ -1064,6 +1074,7 @@ class StreamingPipeline:
     def flush(self) -> torch.Tensor:
         """End of stream: drain the delta lookaheads with the offline edge
         replication, and the sliding CMVN's start-up buffer."""
+        self._reset_stale()
         pending = None
         for i, stage in enumerate(self.stages):
             rows = stage.flush() if pending is None else torch.cat(
@@ -1095,10 +1106,14 @@ class StreamingPipeline:
         """Rows to discard for a slot after :meth:`reset_rows` before its
         output is exact: 2 * delta_order * delta_window for the delta
         stages (the zeroed FIFO rows and the zeroed-carry regression), plus
-        the CMVN window while zeros wash out of it."""
+        the CMVN window while zeros wash out of it. While the sliding CMVN
+        still holds back its start-up rows, those rows predate a reset made
+        now and come out after it, so they count too (the reference leaves
+        them out, and a slot recycled in a pipeline's first min_window
+        frames then shows rows that are not yet exact)."""
         w = 2 * self.cfg.delta_order * self.cfg.delta_window
         if self._scmvn is not None:
-            w += self._scmvn.window
+            w += self._scmvn.window + self._scmvn._pending.shape[1]
         elif self._ocmvn is not None:
             w += self._ocmvn.window
         return w
@@ -1109,7 +1124,20 @@ class StreamingPipeline:
         schedule: the front-end slot restarts as a stream that carried
         silence, the delta carries and queued FIFO rows are zeroed
         (:attr:`warmup_rows`), running and sliding CMVN statistics restart,
-        and :class:`OnlineCmvn` restarts the rows against its priors."""
+        and :class:`OnlineCmvn` restarts the rows against its priors.
+
+        The rows are zeroed at the next :meth:`process`, :meth:`flush` or
+        :meth:`state`, all rows reset since in one pass over each state
+        tensor (a serving tick that recycles hundreds of slots one by one
+        rewrites the sliding-CMVN ring once, not once a slot);
+        :meth:`set_state` drops resets not yet made."""
+        self._stale.update(int(r) for r in rows)
+
+    def _reset_stale(self) -> None:
+        if not self._stale:
+            return
+        rows = sorted(self._stale)
+        self._stale.clear()
         self.frontend.reset_rows(rows)
         for stage in self.stages:
             stage.reset_rows(rows)
@@ -1126,6 +1154,7 @@ class StreamingPipeline:
     def state(self) -> dict:
         """The whole pipeline state, host counters included, for
         :func:`save_state`."""
+        self._reset_stale()
         s = {"frontend": self.frontend.state,
              "deltas": [(st.carry, st.n_seen) for st in self.stages],
              "cmvn": self.cmvn_stats,
@@ -1145,6 +1174,7 @@ class StreamingPipeline:
             if (key in s) != (have is not None):
                 raise ValueError(f"checkpoint and pipeline disagree on "
                                  f"{key} state")
+        self._stale.clear()
         self.frontend.state = s["frontend"]
         for stage, (carry, n_seen) in zip(self.stages, s["deltas"]):
             stage.carry, stage.n_seen = carry, int(n_seen)
@@ -1154,6 +1184,155 @@ class StreamingPipeline:
         if self._ocmvn is not None:
             self._ocmvn.set_state(s["ocmvn"])
         self._fifos = list(s["fifos"])
+
+
+class PoolRows(Mapping):
+    """One serving tick's per-slot rows: a mapping over the batched
+    ``[capacity, n, D]`` tensor the wrapper's step produced.
+
+    Iteration gives the tick's slots; ``rows[slot]`` is that slot's rows
+    with its warmup rows dropped, a view of the batched tensor (no copy).
+    :meth:`block` hands a bulk consumer the batched tensor itself and the
+    per-slot trims, so it can move the whole tick to the host in one copy
+    and trim there."""
+
+    __slots__ = ("_out", "_skips")
+
+    def __init__(self, out: torch.Tensor, skips: dict):
+        self._out = out          # [capacity, n, D]
+        self._skips = skips      # slot -> leading warmup rows to drop
+
+    def __getitem__(self, slot) -> torch.Tensor:
+        skip = self._skips[slot]
+        return self._out[slot, skip:] if skip else self._out[slot]
+
+    def __iter__(self):
+        return iter(self._skips)
+
+    def __len__(self) -> int:
+        return len(self._skips)
+
+    def __repr__(self) -> str:
+        return (f"PoolRows(slots={sorted(self._skips)}, "
+                f"block={tuple(self._out.shape)})")
+
+    def block(self) -> tuple[torch.Tensor, dict]:
+        """``(out, skips)``: the batched ``[capacity, n, D]`` tensor (the
+        rows of unleased slots are junk: index it by this mapping's keys
+        only) and, per slot, how many leading warmup rows of ``out[slot]``
+        to drop. The trims are this tick's, whatever later ticks do."""
+        return self._out, dict(self._skips)
+
+
+class StreamPool:
+    """Slot manager for batched online serving over ONE fixed-shape
+    streaming wrapper (:class:`StreamingPipeline` or
+    :class:`StreamingFrontend`): streams start and end at different times,
+    but the step has one [capacity, C] shape, so utterance turnover
+    recycles batch rows in place.
+
+    :meth:`attach` leases a free slot (its row state reset by the
+    wrapper's ``reset_rows``, the other rows' bits untouched);
+    :meth:`detach` returns it; :meth:`process` runs one batched step per
+    tick, feeding zeros to the rows it is not given, and returns only each
+    fed slot's trustworthy rows: the wrapper's ``warmup_rows``
+    transitional rows after an attach are dropped. The result is a
+    :class:`PoolRows`; :meth:`process_batch` takes a caller-assembled
+    ``[capacity, C]`` block, the data-plane form at serving size.
+
+    A detached slot's undecided lookahead tail (the deltas' lag) is
+    dropped: the end of a served utterance is endpointed trailing silence.
+    All slots share one chunk clock: every tick advances every row by the
+    same C samples, so per-slot chunk sizes cannot differ (that needs the
+    per-row fills of the dynamic step)."""
+
+    def __init__(self, pipeline, warmup: int | None = None):
+        self.pipeline = pipeline
+        frontend = getattr(pipeline, "frontend", pipeline)
+        self.capacity = frontend.state.buf.shape[0]
+        self.device = frontend.device
+        self._warmup = warmup
+        self._free = list(range(self.capacity - 1, -1, -1))
+        self._skip: dict[int, int] = {}    # slot -> warmup rows to drop
+
+    @property
+    def warmup(self) -> int:
+        """The rows an attach drops: the ``warmup`` given, else the
+        wrapper's ``warmup_rows`` at this moment (0 for a front-end)."""
+        if self._warmup is not None:
+            return self._warmup
+        return getattr(self.pipeline, "warmup_rows", 0)
+
+    @property
+    def active(self) -> list:
+        return sorted(self._skip)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def attach(self) -> int:
+        """Lease a slot for a new stream; raises when the pool is full
+        (size the wrapper's batch for peak concurrency)."""
+        if not self._free:
+            raise RuntimeError(f"pool full ({self.capacity} slots); "
+                               "detach a stream first")
+        slot = self._free.pop()
+        self.pipeline.reset_rows([slot])
+        self._skip[slot] = self.warmup
+        return slot
+
+    def detach(self, slot: int) -> None:
+        """End a stream and recycle its slot (no per-slot flush: the
+        undecided lookahead tail is endpointed trailing silence)."""
+        if slot not in self._skip:
+            raise KeyError(f"slot {slot} is not attached")
+        del self._skip[slot]
+        self._free.append(slot)
+
+    def process(self, chunks: dict) -> PoolRows:
+        """One serving tick: ``{slot: [C] samples}`` (numpy or tensors)
+        for any subset of attached slots -> :class:`PoolRows` of those
+        slots (rows on the wrapper's device; their count differs between
+        slots only by warmup trimming). Unfed rows, attached but silent
+        this tick or unleased, advance on zeros."""
+        if not chunks:
+            raise ValueError("feed at least one attached slot")
+        bad = set(chunks) - set(self._skip)
+        if bad:
+            raise KeyError(f"slots not attached: {sorted(bad)}")
+        sizes = {int(np.shape(c)[-1]) for c in chunks.values()}
+        if len(sizes) != 1:
+            raise ValueError("all slots share one chunk clock; got chunk "
+                             f"sizes {sorted(sizes)}")
+        x = torch.zeros(self.capacity, sizes.pop(), device=self.device)
+        for slot, c in chunks.items():
+            x[slot] = torch.as_tensor(c, dtype=torch.float32)
+        return self._trim(self._step(x), chunks)
+
+    def process_batch(self, x) -> PoolRows:
+        """Data-plane tick: the caller assembles the whole ``[capacity,
+        C]`` block (numpy, or a tensor on the wrapper's device) and the
+        pool does only the slot bookkeeping. Rows of unleased slots are
+        computed but never returned (the next :meth:`attach` resets them).
+        Returns a :class:`PoolRows` over every attached slot."""
+        if int(np.shape(x)[0]) != self.capacity:
+            raise ValueError(f"expected [capacity={self.capacity}, C] "
+                             f"block, got {tuple(np.shape(x))}")
+        return self._trim(self._step(x), self._skip)
+
+    def _step(self, x) -> torch.Tensor:
+        out = self.pipeline.process(x)
+        return out[0] if isinstance(out, tuple) else out   # frontend
+
+    def _trim(self, out: torch.Tensor, slots) -> PoolRows:
+        n = out.shape[1]
+        skips = {}
+        for slot in slots:
+            skip = min(self._skip[slot], n)
+            self._skip[slot] -= skip
+            skips[slot] = skip
+        return PoolRows(out, skips)
 
 
 # --- checkpoint/resume ---
