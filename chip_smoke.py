@@ -45,7 +45,14 @@ recycled and untouched slots bit for bit against a zeros-prefix oracle;
 the corpus pipeline (:func:`corpus_phase`): ``python -m
 tpufeat_torch.pipeline`` over 256 WAVs to an ark, every utterance against
 ``extract`` of it alone, and ``extract_corpus`` with its upload and fetch
-knobs on and off; and the phase-kernel anatomy family (K5a-h): every mode of the eight runners of
+knobs on and off; 48 kHz capture with Kaldi pitch
+(:func:`rate_pitch_phase`): ``StreamingPipeline(input_rate=48000,
+pitch=True)`` on the 4096 streams, bit for bit against the same pipeline
+fed the offline resample, its pitch columns against the CPU run, its step
+timed and profiled; offline ``resample``, ``extract`` and
+``pitch_features`` of B=128 x 30 s at 48 kHz against scipy, K1's twin and
+the float64 golden; and a pool over that pipeline; and the phase-kernel
+anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
 the mode's bound, ``full`` and ``allhighest`` launched twice for the same
@@ -424,6 +431,23 @@ def idle_share(fn, calls: int) -> tuple[float, float, float]:
     return wall, device, 1.0 - device / wall
 
 
+def device_launches(fn) -> tuple[int, float]:
+    """(device kernel launches, device ms) of one call of ``fn`` under
+    torch.profiler: the launch count and self time of the CUDA kernel
+    rows of ``key_averages()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
 def families_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
                    device: str = "cuda", reps: int = REPS,
                    pncc_reps: int = 3) -> dict:
@@ -712,6 +736,312 @@ def pool_phase(streams: int, churn_ticks: int, churn: int, reset_counts,
           f"rows were checked")
     check(crossing_err <= TOL_STREAM,
           f"pool crossing rows {crossing_err:.3e}")
+
+
+RATE_IN, CHUNK48 = 48000, 4800     # 100 ms of a 48 kHz capture
+
+
+def voiced48(rows: int, n: int, seed: int, device: str) -> torch.Tensor:
+    """[rows, n] voiced audio at 48 kHz: a tone per row (f0 uniform in
+    90-300 Hz), its second harmonic and noise, drawn on the device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f0 = 90.0 + 210.0 * torch.rand(rows, 1, generator=gen, device=device)
+    ph = (2 * np.pi / RATE_IN) * f0 * torch.arange(n, device=device)
+    x = 0.3 * torch.sin(ph)
+    x += 0.1 * torch.sin(2 * ph + 0.3)
+    del ph
+    return x + 0.02 * torch.randn(rows, n, generator=gen, device=device)
+
+
+def rate_pitch_phase(reset_counts, read_counts, card: str,
+                     device: str = "cuda", streams: int = STREAMS,
+                     steps: int = 30, batch: int = BATCH,
+                     seconds: int = SECONDS, pool_ticks: int = 20,
+                     churn: int = 256, reps: int = STEP_REPS,
+                     pitch_reps: int = 3, cpu_rows: int = 8) -> dict:
+    """Kaldi's online nnet3 front-end on 48 kHz capture:
+    ``StreamingPipeline(KALDI39 with the fused flags at "highest",
+    cmvn="sliding", input_rate=48000, pitch=True, pitch_lookahead=15)`` on
+    ``streams`` streams of ``steps`` 100 ms chunks: its K1 launches (one a
+    step), its rows (39 spectral and 3 pitch columns) bit for bit against
+    the same pipeline fed the offline ``resample`` of the streams in the
+    chunks the resampler gave, the spectral columns against the offline
+    ``extract`` of that signal, the pitch columns of ``cpu_rows`` streams
+    against the CPU run of the same pipeline; the step timed (median), its
+    device time and idle share under torch.profiler, and the resampler's
+    and the pitch tracker's steps alone. Offline, ``batch`` x ``seconds``
+    ragged at 48 kHz: ``resample`` to 16 kHz (against scipy on two rows,
+    its bound the bytes over the memory rate, the
+    peak memory), ``extract`` (K1 against its twin by
+    ``tolerance.compare_to_twin``) and ``pitch_features`` (against the
+    float64 golden on row 0, 30 s, and the shortest row: hz within rtol
+    1e-6 and POV within 1e-4 on the frames the golden calls voiced, POV >
+    0.5; its Viterbi loops timed apart). Then ``StreamPool`` over the
+    pipeline, ``churn`` slots recycled a tick for ``pool_ticks`` ticks:
+    untouched and recycled slots bit for bit against a pipeline fed zeros
+    before each lease and reset at the same ticks. Returns K1's largest error against its twin."""
+    import scipy.signal
+
+    from tpufeat_torch import KALDI39, StreamingPipeline, extract
+    from tpufeat_torch import framing, pitch, resampling, streaming
+    from tpufeat_torch.kernels import signal
+    from tpufeat_torch.kernels import _tolerance as tolerance
+    from tpufeat_torch.reference import cpu
+
+    cfg = dataclasses.replace(KALDI39, cmvn="sliding",
+                              **dict(FUSED, **HIGHEST))
+    K = 15
+    budget_ms = 1e3 * CHUNK48 / RATE_IN
+    base = dataclasses.replace(cfg, deltas=False, cmvn="none")
+    pcfg = pitch.config_for(base)
+
+    def pipeline():
+        return StreamingPipeline(cfg, streams, pitch=True,
+                                 pitch_lookahead=K, input_rate=RATE_IN,
+                                 device=device)
+
+    # online: the main path, its K1 launches and its bits
+    x48 = voiced48(streams, steps * CHUNK48, 48, device)
+    pipe = pipeline()
+    sizes = []
+    native = pipe._process_native
+    pipe._process_native = lambda c: sizes.append(c.shape[1]) or native(c)
+    reset_counts()
+    outs = [pipe.process(x48[:, k * CHUNK48:(k + 1) * CHUNK48])
+            for k in range(steps)]
+    torch.cuda.synchronize()
+    read_counts(f"rate_pitch StreamingPipeline.process ({streams} streams "
+                f"x {steps} steps of {CHUNK48} samples at 48 kHz)",
+                {"signal_features_mma": steps}, highest=True)
+    outs.append(pipe.flush())
+    out = torch.cat(outs, dim=1)
+    del outs, pipe
+    n16 = resampling.output_length(steps * CHUNK48, 1, 3)
+    Fp = pcfg.num_frames(n16)
+    check(out.shape == (streams, Fp, 42),
+          f"rate_pitch rows {tuple(out.shape)}, want {(streams, Fp, 42)}")
+    check(bool(torch.isfinite(out).all()), "rate_pitch rows finite")
+    check(sum(sizes) == n16, f"rate_pitch resampled {sum(sizes)} samples")
+    x16 = resampling.resample(x48, RATE_IN, 16000)
+    twin = StreamingPipeline(cfg, streams, pitch=True, pitch_lookahead=K,
+                             device=device)
+    pos, fed = 0, []
+    for c in sizes[:-1]:
+        fed.append(twin.process(x16[:, pos:pos + c]))
+        pos += c
+    fed.append(twin.process(x16[:, pos:]))
+    fed.append(twin.flush())
+    fed = torch.cat(fed, dim=1)
+    torch.cuda.synchronize()
+    check(torch.equal(out, fed), "rate_pitch rows != the pipeline fed the "
+          "offline-resampled signal")
+    del twin, fed
+    one = extract(x16, cfg=cfg).features[:, :Fp]
+    err, rel = scaled_err(out[..., :39], one)
+    print(f"rate_pitch StreamingPipeline S={streams} x {steps} steps of "
+          f"{CHUNK48} samples at 48 kHz (resampled chunks "
+          f"{sorted(set(sizes))}): every row bit-identical to the same "
+          f"pipeline fed resample() of the streams; spectral columns vs "
+          f"offline extract: max_abs_err={err:.3e} scaled={rel:.3e} "
+          f"(limit {TOL_KERNEL}) [{card}]")
+    check(rel <= TOL_KERNEL, f"rate_pitch spectral vs offline {rel:.3e}")
+    del one
+    # the pitch columns of a few streams against the CPU run
+    sub = x48[:cpu_rows].cpu()
+    cpipe = StreamingPipeline(cfg, cpu_rows, pitch=True, pitch_lookahead=K,
+                              input_rate=RATE_IN, device="cpu")
+    want = torch.cat([cpipe.process(sub[:, k * CHUNK48:(k + 1) * CHUNK48])
+                      for k in range(steps)] + [cpipe.flush()], dim=1)
+    got = out[:cpu_rows].cpu()
+    same = (got[..., 39] - want[..., 39]).abs() < 1e-4   # POV: the lag
+    gap = (got[..., 39:][same] - want[..., 39:][same]).abs().max().item()
+    print(f"rate_pitch pitch columns of {cpu_rows} streams vs the CPU run: "
+          f"{int((~same).sum())} of {same.numel()} rows with another lag; "
+          f"the others within {gap:.3e} (limit 1e-3, the running mean's "
+          f"column) [{card}]")
+    check(int((~same).sum()) <= same.numel() // 1000,
+          "rate_pitch: the card's pitch decisions differ from the CPU's")
+    check(gap <= 1e-3, f"rate_pitch pitch columns vs CPU {gap:.3e}")
+    del out, got, want, cpipe
+
+    # the steady step, and its parts alone
+    pipe = pipeline()
+    chunks = [x48[:, k * CHUNK48:(k + 1) * CHUNK48].contiguous()
+              for k in range(steps)]
+    warm = -(-(cfg.cmvn_min_window + 2 * cfg.delta_order * cfg.delta_window
+               + K + 2 * pcfg.delta_window) * cfg.hop_length * 3
+             // CHUNK48) + 1
+    for chunk in chunks[:warm]:
+        pipe.process(chunk)
+    feed = itertools.cycle(chunks[warm:])
+    check(pipe.process(next(feed)).shape[1] > 0, "rate_pitch emits")
+    rs = resampling.StreamingResampler(RATE_IN, 16000, streams, device)
+    pf = pitch.StreamingPitchFeatures(pcfg, streams, K, device)
+    c16 = x16[:, :1600].contiguous()
+    ms, times, peak = time_paths({
+        "step": lambda: pipe.process(next(feed)),
+        "resampler_only": lambda: rs.process(chunks[0]),
+        "pitch_only": lambda: pf.process(c16)}, reps)
+    wall, dev, idle = idle_share(lambda: pipe.process(next(feed)), 10)
+    n_step, _ = device_launches(lambda: pipe.process(next(feed)))
+    n_pitch, _ = device_launches(lambda: pf.process(c16))
+    print(f"rate_pitch step: median {ms['step']:.3f} ms per step of "
+          f"{streams} streams x {CHUNK48} samples at 48 kHz, "
+          f"{100 * ms['step'] / budget_ms:.2f} % of the {budget_ms:.0f} ms "
+          f"budget; resampler alone {ms['resampler_only']:.3f} ms "
+          f"({100 * ms['resampler_only'] / ms['step']:.1f} %), pitch "
+          f"tracker alone {ms['pitch_only']:.3f} ms "
+          f"({100 * ms['pitch_only'] / ms['step']:.1f} %); runs "
+          f"{['%.3f' % t for t in times['step']]}; peak memory "
+          f"{peak['step'] / 2**20:.0f} MiB; under torch.profiler wall "
+          f"{wall:.3f} ms, device {dev:.3f} ms, idle share {idle:.3f}; "
+          f"{n_step} device launches a step, {n_pitch} of them the pitch "
+          f"tracker's [{card}]")
+    del pipe, rs, pf, chunks, feed, x48, x16, c16
+
+    # offline: B x seconds ragged at 48 kHz
+    n48 = seconds * RATE_IN
+    l48 = ragged_lengths(n48, batch)
+    x48 = voiced48(batch, n48, 39, device)
+    x48 = x48 * (torch.arange(n48, device=device)[None, :]
+                 < torch.from_numpy(l48).to(device)[:, None])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.max_memory_allocated()
+    x16 = resampling.resample(x48, RATE_IN, 16000)
+    torch.cuda.synchronize()
+    rs_peak = torch.cuda.max_memory_allocated() - base_mem
+    l16 = torch.from_numpy(np.array([resampling.output_length(int(n), 1, 3)
+                                     for n in l48], np.int32)).to(device)
+    worst = 0.0
+    golden = (0, int(np.argmin(l48)))       # 30 s, and the shortest row
+    for b in golden:
+        want = scipy.signal.resample_poly(
+            x48[b, :l48[b]].double().cpu().numpy(), 1, 3)
+        got = x16[b, :len(want)].double().cpu().numpy()
+        worst = max(worst, np.abs(got - want).max()
+                    / max(1.0, np.abs(want).max()))
+    check(worst < 2e-5, f"rate_pitch resample vs scipy {worst:.3e}")
+    reset_counts()
+    res = extract(x16, l16, cfg)
+    torch.cuda.synchronize()
+    read_counts(f"rate_pitch offline extract (B={batch} x {seconds} s "
+                f"resampled)", {"signal_features_mma": 1}, highest=True)
+    check(bool(torch.isfinite(res.features[res.mask]).all()),
+          "rate_pitch offline extract finite")
+    xx = framing.preemphasize(x16, cfg.preemphasis)
+    buf = framing.framing_buffer(xx, l16, cfg)[0].contiguous()
+    F = cfg.num_frames(x16.shape[1])
+    a = tolerance.compare_to_twin(
+        signal.signal_features(buf, F, cfg),
+        signal.signal_features_reference(buf, F, cfg),
+        framing.frames_from_buffer(buf, F, cfg.frame_length,
+                                   cfg.hop_length),
+        cfg, what="rate_pitch K1")
+    print(f"rate_pitch offline K1 vs twin at these shapes max_abs_err="
+          f"{a.max_abs_err:.3e} scaled={a.scaled:.3e}")
+    del res, xx, buf
+    feats, valid = pitch.pitch_features(x16, l16, pcfg)
+    torch.cuda.synchronize()
+    check(feats.shape == (batch, pcfg.num_frames(x16.shape[1]), 3),
+          f"rate_pitch pitch_features {tuple(feats.shape)}")
+    check(bool(torch.isfinite(feats[valid]).all()), "pitch finite")
+    n_strong = n_off = 0
+    pov_gap = 0.0
+    for b in golden:
+        n = int(l16[b])
+        ghz, gpov = cpu.pitch(x16[b, :n].double().cpu().numpy(), pcfg)
+        hz, pov, _ = pitch.track(x16[b:b + 1, :n], cfg=pcfg)
+        hz, pov = hz[0].cpu().numpy(), pov[0].cpu().numpy()
+        strong = gpov > 0.5
+        n_strong += int(strong.sum())
+        n_off += int((np.abs(hz[strong] / ghz[strong] - 1) > 1e-6).sum())
+        pov_gap = max(pov_gap, float(np.abs(pov[strong]
+                                            - gpov[strong]).max()))
+    print(f"rate_pitch pitch vs the float64 golden on rows {golden}: "
+          f"{n_off} of {n_strong} voiced frames (golden POV > 0.5) past hz "
+          f"rtol 1e-6; POV within {pov_gap:.3e} there (limit 1e-4) [{card}]")
+    check(n_off == 0, "rate_pitch pitch decisions differ from the golden")
+    check(pov_gap <= 1e-4, f"rate_pitch POV vs golden {pov_gap:.3e}")
+    sig16, lens16, inner = pitch.to_lag_grid(x16, l16, pcfg)
+    scores, vgrid = pitch.nccf(sig16, lens16, inner)
+    shaped = scores - pitch._lag_tilt(inner, scores.device)
+    trans = torch.as_tensor(pitch._transition_matrix(inner), device=device)
+    audio = float(l48.sum()) / RATE_IN
+    ms, times, peak = time_paths({
+        "resample": lambda: resampling.resample(x48, RATE_IN, 16000),
+        "extract": lambda: extract(x16, l16, cfg),
+        "pitch_features": lambda: pitch.pitch_features(x16, l16, pcfg),
+        "viterbi": lambda: pitch._viterbi(shaped, vgrid, trans)},
+        pitch_reps)
+    b_ms, _ = bound({}, nbytes(x48, x16))
+    n_vit, vit_dev = device_launches(
+        lambda: pitch._viterbi(shaped, vgrid, trans))
+    print(f"rate_pitch offline B={batch} x {seconds} s ragged at 48 kHz "
+          f"({audio:.0f} s of audio): resample {ms['resample']:.3f} ms "
+          f"(bound {b_ms:.3f} ms, bytes; {100 * b_ms / ms['resample']:.1f} "
+          f"% of it; max {worst:.3e} from scipy; peak memory "
+          f"{rs_peak / 2**20:.0f} MiB above its input), extract "
+          f"{ms['extract']:.3f} ms, pitch_features "
+          f"{ms['pitch_features']:.3f} ms, of which the Viterbi loops "
+          f"{ms['viterbi']:.3f} ms over {scores.shape[1]} frames "
+          f"({(scores.shape[1] - 1) * 2} steps, {n_vit} device launches, "
+          f"{vit_dev:.3f} ms of device time); runs "
+          f"{ {k: ['%.3f' % t for t in v] for k, v in times.items()} } "
+          f"[{card}]")
+    check(rs_peak < 15 * 2**30 // 10, f"rate_pitch resample peak "
+          f"{rs_peak / 2**30:.2f} GiB")
+    del x48, x16, scores, shaped, feats, valid, sig16
+
+    # the pool: churn slots recycled a tick, against a zero-fed oracle
+    half = streams // 2
+
+    def leased(k):
+        return [((k - 1) * churn + j) % half for j in range(churn)] \
+            if 0 < k < pool_ticks else []
+    last = np.zeros(streams, np.int64)
+    for k in range(pool_ticks):
+        last[leased(k)] = k
+    xp = voiced48(streams, pool_ticks * CHUNK48, 61, device)
+    pool = streaming.StreamPool(pipeline())
+    for _ in range(streams):
+        pool.attach()
+    got = []
+    reset_counts()
+    for k in range(pool_ticks):
+        for s in leased(k):
+            pool.detach(s)
+        for _ in leased(k):
+            pool.attach()
+        got.append(pool.process_batch(
+            xp[:, k * CHUNK48:(k + 1) * CHUNK48]).block()[0])
+    torch.cuda.synchronize()
+    read_counts(f"rate_pitch pool, {pool_ticks} ticks of {streams} slots "
+                f"({churn} recycled a tick)",
+                {"signal_features_mma": pool_ticks}, highest=True)
+    del pool
+    oracle = pipeline()
+    untouched = torch.from_numpy(last == 0).to(device)
+    rows_u = rows_r = 0
+    for k in range(pool_ticks):
+        oracle.reset_rows(leased(k))
+        zero = torch.from_numpy(last > k).to(device)[:, None]
+        want = oracle.process(torch.where(
+            zero, 0.0, xp[:, k * CHUNK48:(k + 1) * CHUNK48]))
+        check(got[k].shape == want.shape, f"pool tick {k} shape")
+        mine = ~untouched & torch.from_numpy(last <= k).to(device)
+        check(torch.equal(got[k][untouched], want[untouched]),
+              f"rate_pitch pool tick {k}: an untouched slot differs")
+        check(torch.equal(got[k][mine], want[mine]),
+              f"rate_pitch pool tick {k}: a recycled slot differs")
+        rows_u += int(untouched.sum()) * want.shape[1]
+        rows_r += int(mine.sum()) * want.shape[1]
+    print(f"rate_pitch pool: {int(untouched.sum())} untouched slots bit for "
+          f"bit on {rows_u} rows, {int((last > 0).sum())} recycled slots "
+          f"bit for bit on {rows_r} rows against a pipeline fed zeros "
+          f"before each lease and reset at the same ticks [{card}]")
+    check(rows_r > 0, "rate_pitch pool checked no recycled row")
+    return {"signal_mma_highest": a.max_abs_err}
 
 
 def shipped_pass(wav_dir: str, cfg, batch: int, device: str) -> float:
@@ -1621,6 +1951,13 @@ def main() -> int:
             kernel_rows[row]["max_abs_err"], err)
     pool_phase(STREAMS, STEPS, 256, reset_counts, read_counts, card)
     corpus_phase(256, reset_counts, read_counts, card)
+
+    # 9e. 48 kHz capture with Kaldi pitch: the online pipeline, offline
+    # resample -> extract -> pitch_features, and the pool over it
+    for row, err in rate_pitch_phase(reset_counts, read_counts,
+                                     card).items():
+        kernel_rows[row]["max_abs_err"] = max(
+            kernel_rows[row]["max_abs_err"], err)
 
     # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its

@@ -222,9 +222,15 @@ def test_cli_validate_time_and_profile(wavs, tmp_path, capsys):
 
 def test_cli_refusals(wavs, tmp_path, monkeypatch):
     out = str(tmp_path / "o.npy")
-    for flag, item in (("--resample", "item 9"), ("--pitch", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main([wavs[0], out, flag, "--device", "cpu"])
+    w8 = str(tmp_path / "a8k.wav")
+    io.write_wav(w8, np.zeros(8000, np.float32), 8000)
+    with pytest.raises(SystemExit, match="--resample"):
+        cli.main([w8, out, "--device", "cpu"])
+    for ext in (".htk", ".npy"):
+        with pytest.raises(SystemExit, match="pitch"):
+            cli.main([wavs[0], str(tmp_path / f"p{ext}"), "--pitch",
+                      "--device", "cpu"] + (["--validate"] if ext == ".npy"
+                                            else []))
     with pytest.raises(SystemExit, match="unknown config field"):
         cli.main([wavs[0], out, "--set", "nope=1", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -338,14 +344,13 @@ def test_pipeline_dither_generator(corpus):
 
 def test_pipeline_refuses_unported_options(corpus, tmp_path):
     root, _ = corpus
-    for kw, item in ((dict(resample=True), "item 9"),
-                     (dict(ivector=object()), "item 11"),
+    for kw, item in ((dict(ivector=object()), "item 11"),
                      (dict(dp=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
                                          **kw))
     out = str(tmp_path / "o.npz")
-    for flag, item in (("--resample", "item 9"), ("--dp", "item 13"),
+    for flag, item in (("--dp", "item 13"),
                        ("--fmllr-ubm", "item 11"),
                        ("--ivector-extractor", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
@@ -354,7 +359,7 @@ def test_pipeline_refuses_unported_options(corpus, tmp_path):
 
 def test_pipeline_rate_mismatch_rejected(tmp_path):
     io.write_wav(str(tmp_path / "a.wav"), np.zeros(8000, np.float32), 8000)
-    with pytest.raises(ValueError, match="not at 16000 Hz"):
+    with pytest.raises(ValueError, match="not at 16000 Hz.*resample=True"):
         list(pipeline.extract_corpus(str(tmp_path), MFCC13_HTK,
                                      device="cpu"))
 
@@ -402,43 +407,52 @@ def _decode_threads():
             if t.name == pipeline.DECODE_THREAD and t.is_alive()]
 
 
+def _held_decode(monkeypatch, release: threading.Event) -> None:
+    """Patch the decode so that every batch after the first (the ones the
+    decode thread takes) waits for ``release``, up to 10 s: the thread is
+    then alive until the test lets it go, however slow the host."""
+    real = pipeline._decode_batch
+    calls = []
+
+    def held(*a, **kw):
+        calls.append(1)
+        if len(calls) > 1:
+            release.wait(timeout=10)
+        return real(*a, **kw)
+    monkeypatch.setattr(pipeline, "_decode_batch", held)
+
+
 def test_no_thread_outlives_an_abandoned_generator(corpus, monkeypatch):
     root, _ = corpus
-    real = pipeline._decode_batch
-
-    def slow(*a, **kw):
-        time.sleep(0.3)
-        return real(*a, **kw)
-    monkeypatch.setattr(pipeline, "_decode_batch", slow)
+    release = threading.Event()
+    _held_decode(monkeypatch, release)
     gen = pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
                                   device="cpu")
-    next(gen)                                 # batch 1 decodes meanwhile
+    next(gen)                                 # batch 1's thread is held
     assert _decode_threads()
+    release.set()
     gen.close()
     assert not _decode_threads()
 
 
 def test_no_thread_outlives_a_failed_fetch(corpus, monkeypatch):
     root, _ = corpus
-    real = pipeline._decode_batch
-    calls = []
-
-    def slow(*a, **kw):
-        time.sleep(0.3)
-        return real(*a, **kw)
-
+    release = threading.Event()
+    _held_decode(monkeypatch, release)
     real_rows = pipeline._rows
+    alive_at_failure = []
 
     def boom(*a, **kw):
-        calls.append(1)
-        if len(calls) == 2:
-            raise RuntimeError("fetch failed")
-        return real_rows(*a, **kw)
-    monkeypatch.setattr(pipeline, "_decode_batch", slow)
+        if alive_at_failure or not _decode_threads():
+            return real_rows(*a, **kw)
+        alive_at_failure.append(True)         # the next batch is held
+        release.set()
+        raise RuntimeError("fetch failed")
     monkeypatch.setattr(pipeline, "_rows", boom)
     with pytest.raises(RuntimeError, match="fetch failed"):
         list(pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
                                      device="cpu"))
+    assert alive_at_failure
     assert not _decode_threads()
 
 
@@ -448,5 +462,114 @@ def test_decode_failure_names_the_file(corpus):
         f.write(b"RIFF\x00\x00\x00\x00WAVEjunk")
     with pytest.raises(ValueError, match=os.path.basename(paths[3])):
         list(pipeline.extract_corpus(root, MFCC13_HTK, batch_size=2,
+                                     device="cpu"))
+    assert not _decode_threads()
+
+
+# ---------------------------------------------------------------------------
+# --resample and --pitch
+# ---------------------------------------------------------------------------
+
+def _rate_wav(path, n, rate, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / rate
+    x = 0.3 * np.sin(2 * np.pi * 170.0 * t) + 0.05 * rng.standard_normal(n)
+    io.write_wav(path, x.astype(np.float32), rate)
+
+
+@pytest.mark.parametrize("flags", [["--resample"], ["--pitch"],
+                                   ["--resample", "--pitch"]],
+                         ids=["resample", "pitch", "both"])
+def test_cli_resample_and_pitch_match_tpufeat(tmp_path, flags):
+    """--resample / --pitch against ``tpufeat.cli`` on the same WAVs:
+    the spectral columns within TOL, the pitch columns within 1e-5 abs
+    (the same decisions, f32 products in other orders)."""
+    rate = 48000 if "--resample" in flags else 16000
+    ins = []
+    for i, n in enumerate((rate, rate * 3 // 4)):
+        ins.append(str(tmp_path / f"u{i}.wav"))
+        _rate_wav(ins[-1], n, rate, i)
+    got, want = str(tmp_path / "g.npz"), str(tmp_path / "w.npz")
+    assert cli.main([*ins, got, "--preset", "kaldi39", "--device", "cpu",
+                     *flags]) == 0
+    assert jcli.main([*ins, want, "--preset", "kaldi39", *flags]) == 0
+    g, w = np.load(got), np.load(want)
+    np.testing.assert_array_equal(g["mask"], w["mask"])
+    m = g["mask"]
+    gf, wf = g["features"][m], w["features"][m]
+    assert gf.shape == wf.shape
+    assert gf.shape[-1] == (42 if "--pitch" in flags else 39)
+    assert _scaled(gf[:, :39], wf[:, :39]) <= TOL
+    np.testing.assert_allclose(gf[:, 39:], wf[:, 39:], rtol=0, atol=1e-5)
+
+
+def test_cli_pitch_columns_are_pitch_features(tmp_path):
+    from tpufeat_torch import pitch as pm
+    w = str(tmp_path / "a.wav")
+    _rate_wav(w, 16000, 16000, 3)
+    out = str(tmp_path / "o.npy")
+    assert cli.main([w, out, "--pitch", "--device", "cpu"]) == 0
+    f = np.load(out)
+    x, _ = io.read_wav(w)
+    pf, _ = pm.pitch_features(x, cfg=pm.config_for(MFCC13_HTK),
+                              device="cpu")
+    assert f.shape == (pf.shape[0], 16)
+    np.testing.assert_array_equal(f[:, 13:], pf.numpy())
+
+
+def test_corpus_resample_matches_per_file(tmp_path):
+    """8k/16k/48k files in one corpus with resample=True: each output
+    equals extract of resampling.resample of its file (a padded row's
+    valid prefix resamples as the lone file does: within TOL, the batch's
+    products in other shapes); without it, the corpus is refused."""
+    from tpufeat_torch import features, resampling
+    rates = {"a.wav": 16000, "b.wav": 8000, "c.wav": 48000, "d.wav": 8000,
+             "e.wav": 48000}
+    for i, (name, r) in enumerate(rates.items()):
+        _rate_wav(str(tmp_path / name), r // 2 + 77 * i, r, i)
+    stats = {}
+    got = {os.path.basename(k): v for k, v in pipeline.extract_corpus(
+        str(tmp_path), KALDI39, batch_size=2, stats=stats, resample=True,
+        device="cpu")}
+    assert set(got) == set(rates)
+    assert stats["files"] == 5
+    for name, r in rates.items():
+        x, _ = io.read_wav(str(tmp_path / name))
+        x16 = resampling.resample(x, r, 16000, device="cpu")
+        want = features.extract(x16, cfg=KALDI39).features.numpy()
+        assert got[name].shape == want.shape
+        assert _scaled(got[name], want) <= TOL
+    # the reference pipeline on the same corpus
+    ref = {os.path.basename(k): v for k, v in jpipeline.extract_corpus(
+        str(tmp_path), JPRESETS["kaldi39"], batch_size=2, resample=True)}
+    for name in rates:
+        assert _scaled(got[name], ref[name]) <= TOL
+
+
+def test_corpus_resample_cli(tmp_path):
+    for i, r in enumerate((8000, 16000, 48000)):
+        _rate_wav(str(tmp_path / f"u{i}.wav"), r, r, i)
+    out = str(tmp_path / "o.npz")
+    assert pipeline.main([str(tmp_path), out, "--preset", "kaldi39",
+                          "--resample", "--device", "cpu"]) == 0
+    got = np.load(out)
+    assert sorted(got.files) == ["u0.wav", "u1.wav", "u2.wav"]
+    for k in got.files:
+        assert got[k].shape == (KALDI39.num_frames(16000), 39)
+
+
+def test_no_thread_outlives_a_failed_resample(tmp_path, monkeypatch):
+    """A resample that fails in the decode thread surfaces in the consumer,
+    and the thread is joined."""
+    from tpufeat_torch import resampling
+    for i in range(4):
+        _rate_wav(str(tmp_path / f"u{i}.wav"), 8000, 8000, i)
+
+    def boom(*a, **kw):
+        raise RuntimeError("resample failed")
+    monkeypatch.setattr(resampling, "resample", boom)
+    with pytest.raises(RuntimeError, match="resample failed"):
+        list(pipeline.extract_corpus(str(tmp_path), MFCC13_HTK,
+                                     batch_size=2, resample=True,
                                      device="cpu"))
     assert not _decode_threads()

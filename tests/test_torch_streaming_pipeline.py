@@ -3,8 +3,9 @@
 itself across chunk plans and checkpoints.
 
 Mirrors the cases of ``tests/_streaming_pipeline_cases.py`` that apply
-(no pitch, i-vectors or resampler: those options are refused until their
-ROADMAP.md items), ``tests/test_sliding_cmvn.py``'s streaming cases and
+(i-vectors are refused until their ROADMAP.md item; the pitch and
+resampler cases are ``tests/test_torch_streaming_pipeline_rate_pitch.py``),
+``tests/test_sliding_cmvn.py``'s streaming cases and
 ``tests/test_online_cmvn.py``'s ``TestStreamingTwin``. The reference's
 ``StreamingPipeline`` runs in a process of its own
 (``tests/_jax_pipeline_oracle.py``); its parts run here.
@@ -286,10 +287,8 @@ def test_same_input_rate_is_the_pipeline():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("option", [dict(pitch=True),
-                                    dict(ivector=object()),
-                                    dict(input_rate=48000)],
-                         ids=["pitch", "ivector", "input_rate"])
+@pytest.mark.parametrize("option", [dict(ivector=object())],
+                         ids=["ivector"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         streaming.StreamingPipeline(KALDI39, device="cpu", **option)

@@ -5,8 +5,11 @@ MFCC-13, Kaldi-39 with deltas and CMVN, fbank, GFCC, PLP, PNCC, the log
 power spectrum; VTLN and dither) on the fused, staged and plain routes,
 the streaming front-end, the online config-3 pipeline
 (``StreamingPipeline``: deltas, running, sliding or Kaldi online CMVN, a
-transform) and its slot manager (``StreamPool``), and the host tools
-(``feats_io``, ``data``, ``cli``, the corpus pipeline ``pipeline``), with
+transform, Kaldi pitch rows, a 48 kHz or other input rate) and its slot
+manager (``StreamPool``), the polyphase resampler (``resampling``), the
+pitch tracker (``pitch``), augmentation and VAD (``augment``), the
+beamformer (``beamform``), and the host tools (``feats_io``, ``data``,
+``cli``, the corpus pipeline ``pipeline``), with
 the fused signal kernel and the two staged kernels written in CUDA for
 ``sm_90a``. It imports torch and numpy, never jax or ``tpufeat``, and
 builds no CUDA code at import:
@@ -23,6 +26,7 @@ from tpufeat_torch.features import (  # noqa: F401
     FeatureResult, extract, extract_chunked, frames, logmel, make_extractor,
     mel_spectrogram, mfcc, online_cmvn, sliding_cmvn, spectrogram)
 from tpufeat_torch.io import read_wav, write_wav  # noqa: F401
+from tpufeat_torch.resampling import resample  # noqa: F401
 from tpufeat_torch.streaming import (  # noqa: F401
     OnlineCmvn, PoolRows, StreamingDeltas, StreamingFrontend,
     StreamingPipeline, StreamingSlidingCMVN, StreamPool, StreamState,

@@ -6,11 +6,12 @@
   python -m tpufeat_torch.cli audio.wav out.npy --profile DIR  # torch trace
   python -m tpufeat_torch.cli audio.wav out.htk --preset mfcc13  # HTK file
   python -m tpufeat_torch.cli a.wav b.wav out.ark --preset kaldi39  # ark+scp
+  python -m tpufeat_torch.cli a48k.wav out.npy --resample --pitch
 
 It computes on the card (``--device cuda``, the default) unless the CPU is
 named (``--device cpu``); without a card the default refuses to run.
-``--resample`` (ROADMAP.md queue 1, item 9) and ``--pitch`` (item 10) are
-not ported yet and raise ``NotImplementedError``.
+``--resample`` converts inputs at another rate with the polyphase
+resampler; ``--pitch`` appends Kaldi-style pitch features.
 """
 
 from __future__ import annotations
@@ -60,15 +61,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "sample chunks instead of one-shot")
     p.add_argument("--resample", action="store_true",
                    help="resample inputs whose rate differs from the "
-                        "config's (not ported yet: ROADMAP.md queue 1, "
-                        "item 9)")
+                        "config's sample_rate (polyphase, matches "
+                        "scipy.signal.resample_poly)")
     p.add_argument("--htk-compress", action="store_true",
                    help="write .htk outputs in HTKBook _C compressed "
                         "form (per-column int16 quantization, half the "
                         "file size)")
     p.add_argument("--pitch", action="store_true",
-                   help="append Kaldi-style pitch features (not ported "
-                        "yet: ROADMAP.md queue 1, item 10)")
+                   help="append Kaldi-style 3-dim pitch features (POV, "
+                        "log-pitch, delta-log-pitch) to every frame; the "
+                        "batch is truncated to the pitch tracker's frame "
+                        "grid (its correlation window extends frame_length "
+                        "+ max-lag samples)")
     return p
 
 
@@ -136,11 +140,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if len(args.inputs) < 2:
         raise SystemExit("need at least one input WAV and one output path")
-    for flag, item in (("resample", 9), ("pitch", 10)):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to tpufeat_torch yet: ROADMAP.md "
-                f"queue 1, item {item}")
     *wavs, out_path = args.inputs
     cfg = parse_overrides(PRESETS[args.preset], args.set)
     device = device_of(args.device)
@@ -149,10 +148,16 @@ def main(argv=None) -> int:
         sigs, rates = zip(*(io.read_wav(w) for w in wavs))
     except FileNotFoundError as e:
         raise SystemExit(f"input not found: {e.filename}")
-    for w, r in zip(wavs, rates):
+    sigs = list(sigs)
+    for i, (w, r) in enumerate(zip(wavs, rates)):
         if r != cfg.sample_rate:
-            raise SystemExit(f"{w}: sample rate {r} != config "
-                             f"{cfg.sample_rate}; resample it first")
+            if not args.resample:
+                raise SystemExit(f"{w}: sample rate {r} != config "
+                                 f"{cfg.sample_rate}; pass --resample to "
+                                 "convert it")
+            from tpufeat_torch import resampling
+            sigs[i] = resampling.resample(sigs[i], r, cfg.sample_rate,
+                                          device=device).cpu().numpy()
     lengths = np.array([len(s) for s in sigs], dtype=np.int32)
     batch = np.zeros((len(sigs), int(lengths.max())), dtype=np.float32)
     for b, s in enumerate(sigs):
@@ -199,6 +204,22 @@ def main(argv=None) -> int:
         print(f"profile trace written to {trace}", file=sys.stderr)
 
     ext = os.path.splitext(out_path)[1].lower()
+    if args.pitch:
+        if ext in (".htk", ".mfc", ".fea") or args.validate:
+            raise SystemExit("--pitch composes with .npy/.npz/.ark outputs "
+                             "only (no HTK parmKind describes appended "
+                             "pitch, and --validate's goldens cover the "
+                             "spectral features alone)")
+        from tpufeat_torch import pitch as pitchmod
+        # the tracker on the feature config's grid (rate, hop, centering),
+        # so pitch frame t and spectral frame t are the same instant
+        pf, pvalid = pitchmod.pitch_features(
+            batch, lengths, pitchmod.config_for(cfg), device=device)
+        pf, pvalid = pf.cpu().numpy(), pvalid.cpu().numpy()
+        fp = min(pf.shape[1], feats.shape[1])    # the pitch window is
+        feats = np.concatenate(                  # longer: truncate to it
+            [feats[:, :fp], pf[:, :fp]], axis=-1)
+        mask = mask[:, :fp] & pvalid[:, :fp]
     if ext in (".htk", ".mfc", ".fea"):
         # one utterance per file; a batch writes suffixed files
         kind, reorder = _htk_layout(cfg)

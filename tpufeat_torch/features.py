@@ -506,6 +506,15 @@ def placed(signal, device) -> torch.Tensor:
     return signal
 
 
+def on_device(a, device) -> torch.Tensor:
+    """``a`` (numpy, a list, a scalar or a tensor) as a tensor on
+    ``device``, its dtype kept: the per-row arguments (lengths, delays,
+    weights) that go beside a batch already placed."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.as_tensor(np.asarray(a), device=device)
+
+
 def _prep(signal, lengths, device):
     """Input promotion: numpy goes to ``device`` (default the card), a
     tensor stays where it lives. int16 is scaled by 1/32768, float64 stays float64,

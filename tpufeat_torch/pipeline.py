@@ -11,10 +11,14 @@ slower (``chip_smoke.py``'s corpus phase measures all four settings).
 
   python -m tpufeat_torch.pipeline /corpus/wavs feats.ark --preset kaldi39
 
-Not ported yet, and refused with ``NotImplementedError``: ``resample=`` /
-``--resample`` (ROADMAP.md queue 1, item 9), ``ivector=`` and the
-``--ivector-*`` / ``--fmllr-*`` estimation flags (item 11), ``dp=`` /
-``--dp`` (item 13).
+``resample=True`` / ``--resample`` takes corpora of mixed rates: a batch
+(one rate, from the bucketing) is resampled on ``device`` by the decode
+thread, as part of getting the batch ready, so the card's side only ever
+sees ``cfg.sample_rate``.
+
+Not ported yet, and refused with ``NotImplementedError``: ``ivector=`` and
+the ``--ivector-*`` / ``--fmllr-*`` estimation flags (ROADMAP.md queue 1,
+item 11), ``dp=`` / ``--dp`` (item 13).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from tpufeat_torch import cli, data, features, feats_io, io
+from tpufeat_torch import cli, data, features, feats_io, io, resampling
 from tpufeat_torch.config import PRESETS, FeatureConfig
 
 #: extract-segments' end-time forgiveness: segment specs are usually
@@ -205,6 +209,12 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     ``generator``: the dither's noise source on ``device``, required iff
     ``cfg.dither > 0``; the batches draw from it in turn.
 
+    ``resample``: accept files at other rates than ``cfg.sample_rate``;
+    each such batch is resampled on ``device`` in the decode thread (a
+    padded row's valid prefix resamples as the lone file does: the
+    resampler zero-pads its edges), and the features equal ``extract`` of
+    ``resampling.resample`` of each file.
+
     ``stats``: a dict to fill with ``files``, ``batches``, ``audio_s``,
     ``device_s`` (upload, dispatch and waiting for the features: the
     consumer's time between items is not in it), ``decode_s`` (the decode
@@ -214,8 +224,6 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
 
     The decode thread is joined before the generator returns, raises or is
     closed by its consumer."""
-    if resample:
-        _refuse("extract_corpus's resample=", 9)
     if ivector is not None or ivectors is not None:
         _refuse("extract_corpus's ivector=", 11)
     if dp:
@@ -231,10 +239,11 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     if not entries:
         return
     bad = [e for e in entries if e[2] != cfg.sample_rate]
-    if bad:
+    if bad and not resample:
         raise ValueError(
             f"{len(bad)} file(s) not at {cfg.sample_rate} Hz (first: "
-            f"{bad[0][0]} @ {bad[0][2]}); resample them first")
+            f"{bad[0][0]} @ {bad[0][2]}); resample them first, or pass "
+            "resample=True / --resample")
     plans = _plan_batches(entries, batch_size, bucket_grid)
     pin = device.type == "cuda"
 
@@ -246,7 +255,14 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
         batch_entries, width, rows, rate = plans[i]
         try:
             arena, lengths = _decode_batch(batch_entries, width, rows, rate)
-            decoded[i] = (_pinned(arena, pin), lengths)
+            x = _pinned(arena, pin)
+            if rate != cfg.sample_rate:
+                x = resampling.resample(x.to(device, non_blocking=True),
+                                        rate, cfg.sample_rate)
+                p, q = resampling._rational(rate, cfg.sample_rate)
+                lengths = np.array([resampling.output_length(int(n), p, q)
+                                    for n in lengths], np.int32)
+            decoded[i] = (x, lengths)
         except Exception as e:          # raised again by the consumer side
             decoded[i] = e
         clock["decode_s"] += time.perf_counter() - t0
@@ -259,7 +275,7 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     decode(0)
     clock["decode_wait_s"] += time.perf_counter() - t0
     try:
-        for i, (batch_entries, _, _, rate) in enumerate(plans):
+        for i, (batch_entries, _, _, _) in enumerate(plans):
             if thread is not None:
                 t0 = time.perf_counter()
                 thread.join()
@@ -275,7 +291,7 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
                 thread.start()
             true_samples += int(lengths.sum())
             padded_samples += arena.numel()
-            audio_seconds += float(lengths.sum()) / rate
+            audio_seconds += float(lengths.sum()) / cfg.sample_rate
             shapes.add(tuple(arena.shape))
             t0 = time.perf_counter()
             x = arena.to(device, non_blocking=True)
@@ -377,7 +393,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--set", action="append", default=[], metavar="K=V",
                    help="override a FeatureConfig field (cli semantics; "
                         "repeatable)")
-    for flag, item in (("--resample", 9), ("--dp", 13),
+    p.add_argument("--resample", action="store_true",
+                   help="accept WAVs at other rates: each batch is "
+                        "resampled to the config's rate on the device")
+    for flag, item in (("--dp", 13),
                        ("--ivector-extractor", 11), ("--ivector-ark", 11),
                        ("--fmllr-ubm", 11), ("--fmllr-ark", 11)):
         p.add_argument(flag, default=None, nargs="?", const=True,
@@ -388,9 +407,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in (("resample", 9), ("dp", 13),
-                       ("ivector_extractor", 11), ("ivector_ark", 11),
-                       ("fmllr_ubm", 11), ("fmllr_ark", 11)):
+    for flag, item in (("dp", 13), ("ivector_extractor", 11),
+                       ("ivector_ark", 11), ("fmllr_ubm", 11),
+                       ("fmllr_ark", 11)):
         if getattr(args, flag) is not None:
             _refuse(f"--{flag.replace('_', '-')}", item)
     cfg = cli.parse_overrides(PRESETS[args.preset], args.set)
@@ -427,7 +446,7 @@ def main(argv=None) -> int:
         for key, feats in extract_corpus(
                 args.wav_dir, cfg, args.batch, stats=stats,
                 segments=args.segments, bucket_grid=args.bucket_grid,
-                device=device):
+                resample=args.resample, device=device):
             # segments mode yields utterance ids; whole-file mode paths
             rel = key if args.segments \
                 else os.path.relpath(key, args.wav_dir)

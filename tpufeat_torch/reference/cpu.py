@@ -4,8 +4,9 @@ goldens of ``tpufeat/reference/cpu.py``.
 The numerical oracle against which the accelerated path is validated with
 max-abs-error, usable where jax is not installed (``chip_smoke.py`` on the
 GPU host). Everything is float64, stage-by-stage, written for auditability
-rather than speed. The goldens of the families the port has not reached yet
-(pitch, the speaker stack, the models) arrive with their slices.
+rather than speed. The pitch tracker's and the beamformer's goldens are
+here too; those of the speaker stack and the models arrive with their
+slices.
 
 The radix-2 FFT here mirrors the reference's centerpiece OpenCL kernel
 (SURVEY.md §2 C5: iterative Cooley-Tukey, bit-reversal + log2(N) butterfly
@@ -479,3 +480,122 @@ def extract(x: np.ndarray, cfg: FeatureConfig,
                             cfg.cmvn_center,
                             cfg.cmvn.endswith("meanvar"))
     return cmvn(base, cfg.cmvn)
+
+
+def pitch(x: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
+    """Golden pitch tracker -> (pitch_hz [F], pov [F]).
+
+    Independent of tpufeat_torch/pitch.py by construction: scipy
+    ``resample_poly`` for the lag-grid decimation (the port's polyphase
+    resampler is tested against exactly this), direct
+    per-lag correlation loops (no FFT), a plain-Python Viterbi with
+    explicit backtrace, and inline parabolic refinement. ``cfg`` is a
+    tpufeat_torch.pitch.PitchConfig."""
+    x = np.asarray(x, dtype=np.float64)
+    if getattr(cfg, "resampled", False):
+        import math
+        from scipy.signal import resample_poly
+        g = math.gcd(cfg.sample_rate, cfg.lag_rate)
+        x = resample_poly(x, cfg.lag_rate // g, cfg.sample_rate // g)
+        cfg = cfg.inner()
+    W, hop = cfg.frame_length, cfg.hop_length
+    L0, L1 = cfg.lag_min, cfg.lag_max
+    wext = W + L1
+    F = cfg.num_frames(len(x))
+    L = L1 - L0 + 1
+    rms2 = float(np.mean(x * x)) if len(x) else 0.0  # pre-pad RMS
+    ballast = cfg.ballast * (W * rms2) ** 2
+    if getattr(cfg, "center", False):
+        pad = wext // 2
+        x = np.pad(x, (pad, pad))
+    scores = np.zeros((F, L))
+    for t in range(F):
+        b = x[t * hop: t * hop + wext]
+        a = b[:W]
+        e0 = float(a @ a)
+        for j, lag in enumerate(range(L0, L1 + 1)):
+            seg = b[lag: lag + W]
+            den = np.sqrt(e0 * float(seg @ seg) + ballast + 1e-20)
+            scores[t, j] = float(a @ seg) / den
+    lags = np.arange(L0, L1 + 1, dtype=np.float64)
+    trans = cfg.penalty * (np.log(lags)[:, None] - np.log(lags)[None, :]) ** 2
+    shaped = scores - cfg.lag_bias * np.log(lags / L0)  # short-lag tilt
+    v = shaped[0].copy()
+    ptrs = np.zeros((F - 1, L), dtype=np.int64) if F > 1 else \
+        np.zeros((0, L), dtype=np.int64)
+    for t in range(1, F):
+        cand = v[:, None] - trans
+        ptrs[t - 1] = np.argmax(cand, axis=0)
+        v = shaped[t] + np.max(cand, axis=0)
+    path = np.zeros(F, dtype=np.int64)
+    if F:
+        path[-1] = int(np.argmax(v))
+        for t in range(F - 2, -1, -1):
+            path[t] = ptrs[t][path[t + 1]]
+    delta = np.zeros(F)
+    if getattr(cfg, "refine", False):
+        # parabolic sub-lag refinement on the raw NCCF (pitch.refine_lag's
+        # twin): vertex of the parabola through the decided
+        # lag and its neighbors, gated on real curvature, clipped to
+        # half a lag step
+        for t in range(F):
+            j = path[t]
+            if 0 < j < L - 1:
+                ym, y0, yp = scores[t, j - 1], scores[t, j], scores[t, j + 1]
+                den = ym - 2.0 * y0 + yp
+                if den < -1e-2:
+                    delta[t] = min(0.5, max(-0.5, 0.5 * (ym - yp) / den))
+    hz = cfg.sample_rate / (lags[path] + delta)
+    pov = scores[np.arange(F), path]
+    return hz, pov
+
+
+# --- multi-channel beamforming (goldens for tpufeat_torch.beamform) ---
+
+def _bf_pow2(n: int, w: int) -> int:
+    p = 1
+    while p < n + 2 * w:
+        p *= 2
+    return p
+
+
+def gcc_phat(x: np.ndarray, max_delay: int = 64, ref: int = 0,
+             subsample: bool = True) -> np.ndarray:
+    """Float64 golden for :func:`tpufeat_torch.beamform.gcc_phat` ([C, N] ->
+    [C] delays; positive = channel is late vs ref)."""
+    x = np.asarray(x, np.float64)
+    C, N = x.shape
+    p = _bf_pow2(N, max_delay)
+    X = np.fft.rfft(x, n=p, axis=-1)
+    out = np.zeros(C)
+    for c in range(C):
+        cross = X[c] * np.conj(X[ref])
+        cross /= np.maximum(np.abs(cross), 1e-12)
+        corr = np.fft.irfft(cross, n=p)
+        win = np.concatenate([corr[p - max_delay:],
+                              corr[: max_delay + 1]])
+        i = int(np.argmax(win))
+        d = float(i - max_delay)
+        if subsample and 0 < i < 2 * max_delay:
+            cm, c0, cp = win[i - 1], win[i], win[i + 1]
+            den = cm - 2.0 * c0 + cp
+            if abs(den) > 1e-12:
+                d += float(np.clip(0.5 * (cm - cp) / den, -1.0, 1.0))
+        out[c] = d
+    out[ref] = 0.0
+    return out
+
+
+def delay_and_sum(x: np.ndarray, max_delay: int = 64, ref: int = 0,
+                  subsample: bool = True) -> np.ndarray:
+    """Float64 golden for :func:`tpufeat_torch.beamform.delay_and_sum`
+    ([C, N] -> [N]): phase-ramp steering + channel mean."""
+    x = np.asarray(x, np.float64)
+    C, N = x.shape
+    d = gcc_phat(x, max_delay, ref, subsample)
+    p = _bf_pow2(N, 1)
+    X = np.fft.rfft(x, n=p, axis=-1)
+    k = np.arange(p // 2 + 1)
+    y = np.fft.irfft(X * np.exp(2j * np.pi * k[None, :] * d[:, None] / p),
+                     n=p, axis=-1)[:, :N]
+    return y.mean(axis=0)

@@ -58,7 +58,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufeat_torch import features, framing, plp
+from tpufeat_torch import features, framing, plp, resampling
+from tpufeat_torch import pitch as pitchmod
 from tpufeat_torch.config import KALDI39, MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
 
@@ -943,9 +944,20 @@ class StreamingPipeline:
     OnlineTransform, an LDA/MLLT or fMLLR matrix) is applied to the rows
     after CMVN, in fp32 whatever the caller's TF32 setting.
 
-    Not ported yet: ``pitch=`` (ROADMAP.md queue 1, item 10), ``ivector=``
-    (item 11) and an ``input_rate=`` other than ``cfg.sample_rate`` (item
-    9) raise ``NotImplementedError``.
+    ``pitch=True`` (or a ``pitch.PitchConfig``) appends Kaldi-style pitch
+    rows, [POV, mean-subtracted log-pitch, delta-log-pitch], from
+    ``pitch.StreamingPitchFeatures`` with ``pitch_lookahead`` frames of
+    Viterbi lookahead: the spectral rows (after CMVN and the transform)
+    and the pitch rows are joined in stream order, and the flush drops the
+    spectral rows past the pitch tracker's last frame (its window is
+    longer), as the offline CLI truncates. ``input_rate=`` a rate other
+    than ``cfg.sample_rate`` (a 48 kHz capture) puts a
+    ``resampling.StreamingResampler`` ahead of both: the pipeline then sees
+    the bits of the offline ``resampling.resample`` of the stream, and
+    :meth:`flush` drains the resampler first.
+
+    Not ported yet: ``ivector=`` (ROADMAP.md queue 1, item 11) raises
+    ``NotImplementedError``.
 
     The state is tensors and host ints: :meth:`state` / :meth:`set_state`
     go through :func:`save_state` / :func:`load_state`. Tensors live on
@@ -953,24 +965,26 @@ class StreamingPipeline:
     """
 
     def __init__(self, cfg: FeatureConfig | None = None, batch_size: int = 1,
-                 pitch=False, input_rate: int | None = None,
+                 pitch=False, pitch_lookahead: int = 15,
+                 input_rate: int | None = None,
                  online_cmvn: OnlineCmvn | None = None, transform=None,
                  ivector=None, device=None):
         cfg = KALDI39 if cfg is None else cfg
-        for unported, what, item in (
-                (pitch, "pitch=", 10), (ivector is not None, "ivector=", 11),
-                (input_rate not in (None, cfg.sample_rate), "input_rate=",
-                 9)):
-            if unported:
-                raise NotImplementedError(
-                    f"StreamingPipeline's {what} is not ported to "
-                    f"tpufeat_torch yet: ROADMAP.md queue 1, item {item}")
+        if ivector is not None:
+            raise NotImplementedError(
+                "StreamingPipeline's ivector= is not ported to tpufeat_torch "
+                "yet: ROADMAP.md queue 1, item 11")
         if not cfg.deltas:
             raise ValueError("StreamingPipeline is the deltas+CMVN "
                              "composition; use StreamingFrontend for "
                              "base-feature configs")
         self.cfg = cfg
         self.device = features.default_device(device)
+        self._input_rate = input_rate
+        self._resampler = None
+        if input_rate is not None and input_rate != cfg.sample_rate:
+            self._resampler = resampling.StreamingResampler(
+                input_rate, cfg.sample_rate, batch_size, self.device)
         base_cfg = dataclasses.replace(cfg, deltas=False, cmvn="none")
         self.frontend = StreamingFrontend(base_cfg, batch_size, self.device)
         dim = base_cfg.feature_dim
@@ -1016,13 +1030,31 @@ class StreamingPipeline:
                     f"{cfg.feature_dim}-dim rows (want [Do, "
                     f"{cfg.feature_dim}] or [Do, {cfg.feature_dim + 1}])")
             self._transform = t
+        self._pitch = self._pitch_cfg = None
+        self._pitch_lookahead = pitch_lookahead
+        if pitch:
+            self._pitch_cfg = (pitch if isinstance(pitch,
+                                                   pitchmod.PitchConfig)
+                               else pitchmod.config_for(base_cfg))
+            self._pitch = pitchmod.StreamingPitchFeatures(
+                self._pitch_cfg, batch_size, pitch_lookahead, self.device)
+            # the spectral rows (transformed) and the pitch rows wait here
+            # until both halves of a row are out
+            self._main_fifo = torch.zeros(batch_size, 0,
+                                          self._spectral_dim(),
+                                          device=self.device)
+            self._pfeat_fifo = torch.zeros(batch_size, 0, 3,
+                                           device=self.device)
+
+    def _spectral_dim(self) -> int:
+        return self._transform.shape[0] if self._transform is not None \
+            else self.cfg.feature_dim
 
     @property
     def out_dim(self) -> int:
         """The emitted rows' width: cfg.feature_dim, or the transform's
-        output rows."""
-        return self._transform.shape[0] if self._transform is not None \
-            else self.cfg.feature_dim
+        output rows; 3 more with pitch."""
+        return self._spectral_dim() + (3 if self._pitch is not None else 0)
 
     def _emit(self, last_rows: torch.Tensor) -> torch.Tensor:
         """Pop n = last_rows rows off every FIFO and assemble the
@@ -1056,11 +1088,33 @@ class StreamingPipeline:
         y = features.matmul(out, t[:, :d].T)
         return y + t[:, d] if t.shape[1] == d + 1 else y
 
+    def _join(self, main: torch.Tensor, prows: torch.Tensor) -> torch.Tensor:
+        """Queue the spectral and the pitch rows; emit the rows both halves
+        of which are out, [main | pov, log-pitch, delta-log-pitch]."""
+        self._main_fifo = torch.cat([self._main_fifo, main], dim=1)
+        self._pfeat_fifo = torch.cat([self._pfeat_fifo, prows], dim=1)
+        n = min(self._main_fifo.shape[1], self._pfeat_fifo.shape[1])
+        out_m, self._main_fifo = (self._main_fifo[:, :n],
+                                  self._main_fifo[:, n:])
+        out_p, self._pfeat_fifo = (self._pfeat_fifo[:, :n],
+                                   self._pfeat_fifo[:, n:])
+        return torch.cat([out_m, out_p], dim=-1)
+
     def process(self, chunk) -> torch.Tensor:
-        """[B, C] (or [C]) raw samples -> [B, n, out_dim] complete rows (n
-        lags the input by delta_order * delta_window frames, and by the
-        sliding CMVN's start-up delay)."""
+        """[B, C] (or [C]) raw samples at ``input_rate`` (default
+        ``cfg.sample_rate``) -> [B, n, out_dim] complete rows (n lags the
+        input by delta_order * delta_window frames, by the sliding CMVN's
+        start-up delay and, with pitch, by the Viterbi lookahead)."""
         self._reset_stale()
+        chunk = _as_samples(chunk, self.device)
+        if chunk.dim() == 1:
+            chunk = chunk[None]
+        if self._resampler is not None:
+            chunk = self._resampler.process(chunk)
+        return self._process_native(chunk)
+
+    def _process_native(self, chunk: torch.Tensor) -> torch.Tensor:
+        """The step on samples at ``cfg.sample_rate``."""
         base, _ = self.frontend.process(chunk)
         rows = base
         self._fifos[0] = torch.cat([self._fifos[0], base], dim=1)
@@ -1069,12 +1123,21 @@ class StreamingPipeline:
             if i + 1 < len(self.stages):
                 self._fifos[i + 1] = torch.cat([self._fifos[i + 1], rows],
                                                dim=1)
-        return self._emit(rows)
+        out = self._emit(rows)
+        if self._pitch is not None:
+            out = self._join(out, self._pitch.process(chunk))
+        return out
 
     def flush(self) -> torch.Tensor:
-        """End of stream: drain the delta lookaheads with the offline edge
-        replication, and the sliding CMVN's start-up buffer."""
+        """End of stream: drain the resampler's filter tail, then the delta
+        lookaheads with the offline edge replication, the sliding CMVN's
+        start-up buffer and the pitch tracker's lookahead."""
         self._reset_stale()
+        pre = None
+        if self._resampler is not None:
+            tail = self._resampler.flush()
+            if tail.shape[1]:
+                pre = self._process_native(tail)
         pending = None
         for i, stage in enumerate(self.stages):
             rows = stage.flush() if pending is None else torch.cat(
@@ -1090,14 +1153,24 @@ class StreamingPipeline:
                             dim=1)
         if any(f.shape[1] for f in self._fifos):
             raise RuntimeError("rows left in the alignment FIFOs after flush")
-        return out
+        if self._pitch is not None:
+            out = self._join(out, self._pitch.flush())
+            if self._pfeat_fifo.shape[1]:
+                raise RuntimeError("pitch rows left after flush")
+            # the pitch window is longer than the spectral frame, so the
+            # tracker decides fewer frames: the spectral tail is dropped
+            self._main_fifo = self._main_fifo[:, :0]
+        return out if pre is None else torch.cat([pre, out], dim=1)
 
     def reset(self) -> None:
-        """A fresh stream in every row; ``online_cmvn``'s priors and the
-        transform stay."""
+        """A fresh stream in every row; ``online_cmvn``'s priors, the
+        transform, the pitch options and the input rate stay."""
         if self._ocmvn is not None:
             self._ocmvn.reset()
         self.__init__(self.cfg, self._fifos[0].shape[0],
+                      pitch=self._pitch_cfg or False,
+                      pitch_lookahead=self._pitch_lookahead,
+                      input_rate=self._input_rate,
                       online_cmvn=self._ocmvn, transform=self._transform,
                       device=self.device)
 
@@ -1110,12 +1183,18 @@ class StreamingPipeline:
         still holds back its start-up rows, those rows predate a reset made
         now and come out after it, so they count too (the reference leaves
         them out, and a slot recycled in a pipeline's first min_window
-        frames then shows rows that are not yet exact)."""
+        frames then shows rows that are not yet exact). Pitch adds the
+        Viterbi restart and its delta chain, counted twice like the deltas:
+        2 * (pitch_lookahead + 2 * delta_window). A zeroed resampler carry
+        is the zeros-prefix history, and adds nothing."""
         w = 2 * self.cfg.delta_order * self.cfg.delta_window
         if self._scmvn is not None:
             w += self._scmvn.window + self._scmvn._pending.shape[1]
         elif self._ocmvn is not None:
             w += self._ocmvn.window
+        if self._pitch is not None:
+            w += 2 * (self._pitch_lookahead
+                      + 2 * self._pitch_cfg.delta_window)
         return w
 
     def reset_rows(self, rows) -> None:
@@ -1124,7 +1203,9 @@ class StreamingPipeline:
         schedule: the front-end slot restarts as a stream that carried
         silence, the delta carries and queued FIFO rows are zeroed
         (:attr:`warmup_rows`), running and sliding CMVN statistics restart,
-        and :class:`OnlineCmvn` restarts the rows against its priors.
+        :class:`OnlineCmvn` restarts the rows against its priors, the
+        resampler's carry is zeroed, and the pitch tracker restarts from
+        its initial condition (its queued rows zeroed).
 
         The rows are zeroed at the next :meth:`process`, :meth:`flush` or
         :meth:`state`, all rows reset since in one pass over each state
@@ -1148,8 +1229,16 @@ class StreamingPipeline:
             self._scmvn.reset_rows(rows)
         if self._ocmvn is not None:
             self._ocmvn.reset_rows(rows)
+        if self._resampler is not None:
+            self._resampler.reset_rows(rows)
         self._fifos = [zero_rows(f, rows) if f.shape[1] else f
                        for f in self._fifos]
+        if self._pitch is not None:
+            self._pitch.reset_rows(rows)
+            if self._main_fifo.shape[1]:
+                self._main_fifo = zero_rows(self._main_fifo, rows)
+            if self._pfeat_fifo.shape[1]:
+                self._pfeat_fifo = zero_rows(self._pfeat_fifo, rows)
 
     def state(self) -> dict:
         """The whole pipeline state, host counters included, for
@@ -1163,6 +1252,12 @@ class StreamingPipeline:
             s["scmvn"] = self._scmvn.state()
         if self._ocmvn is not None:
             s["ocmvn"] = self._ocmvn.state()
+        if self._resampler is not None:
+            s["resampler"] = self._resampler.state()
+        if self._pitch is not None:
+            s["pitch"] = self._pitch.state()
+            s["main_fifo"] = self._main_fifo
+            s["pfeat_fifo"] = self._pfeat_fifo
         return s
 
     def set_state(self, s: dict) -> None:
@@ -1170,7 +1265,15 @@ class StreamingPipeline:
             raise ValueError(
                 f"checkpoint has {len(s['deltas'])} delta stages, config "
                 f"wants {len(self.stages)} (delta_order mismatch)")
-        for key, have in (("scmvn", self._scmvn), ("ocmvn", self._ocmvn)):
+        # a resumed stream at another ingest rate would lose the
+        # resampler's buffered samples: refuse it
+        if (self._resampler is not None) != ("resampler" in s):
+            raise ValueError(
+                "checkpoint/config input_rate mismatch: checkpoint "
+                f"{'has' if 'resampler' in s else 'lacks'} resampler "
+                f"state, pipeline input_rate={self._input_rate}")
+        for key, have in (("scmvn", self._scmvn), ("ocmvn", self._ocmvn),
+                          ("pitch", self._pitch)):
             if (key in s) != (have is not None):
                 raise ValueError(f"checkpoint and pipeline disagree on "
                                  f"{key} state")
@@ -1183,7 +1286,13 @@ class StreamingPipeline:
             self._scmvn.set_state(s["scmvn"])
         if self._ocmvn is not None:
             self._ocmvn.set_state(s["ocmvn"])
+        if self._resampler is not None:
+            self._resampler.set_state(s["resampler"])
         self._fifos = list(s["fifos"])
+        if self._pitch is not None:
+            self._pitch.set_state(s["pitch"])
+            self._main_fifo = s["main_fifo"]
+            self._pfeat_fifo = s["pfeat_fifo"]
 
 
 class PoolRows(Mapping):
