@@ -51,7 +51,15 @@ pitch=True)`` on the 4096 streams, bit for bit against the same pipeline
 fed the offline resample, its pitch columns against the CPU run, its step
 timed and profiled; offline ``resample``, ``extract`` and
 ``pitch_features`` of B=128 x 30 s at 48 kHz against scipy, K1's twin and
-the float64 golden; and a pool over that pipeline; and the phase-kernel
+the float64 golden; and a pool over that pipeline; the speaker stack
+(:func:`speaker_phase`) at Kaldi's width (512-gauss UBM, 100-dim
+i-vectors), trained on the card from the kaldi39 batch:
+``StreamingPipeline(pitch=True, ivector=)`` on the 4096 streams (142-dim
+rows, their spectral and pitch columns bit for bit against the pipeline
+without i-vectors, their i-vector columns against ``ivector_features``)
+and a pool over it, offline i-vectors and fMLLR against the CPU and the
+float64 golden, and diarization of 30 min and 3 h drawn from the
+extractor's model against the truth and the CPU; and the phase-kernel
 anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
@@ -100,6 +108,8 @@ TOL_HIGHEST = 1.2e-4  # the same at "highest", its contract
 TOL_ROUTE = 1e-4    # one-shot staged routes vs the fused route at
 #                     "highest" (six passes in each), same scaling
 TOL_STREAM = 1e-5   # streaming vs its one-shot counterpart, same scaling
+TOL_IVECTOR = 1e-4  # online i-vector columns vs ivector_features of the
+#                     same base rows (tests/test_torch_ivector.py's)
 REPS = 11           # timed runs per path (median)
 LAUNCHES = 10       # calls per timed run of a kernel or a twin alone: its
 #                     time is their mean, so the host's time between two
@@ -431,6 +441,23 @@ def idle_share(fn, calls: int) -> tuple[float, float, float]:
     return wall, device, 1.0 - device / wall
 
 
+def top_kernels(fn, k: int = 4) -> str:
+    """The ``k`` device kernels of one call of ``fn`` with the most self
+    time under torch.profiler: "name ms (launches)", comma-separated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)[:k]
+    return ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
+                     f"ms ({e.count})" for e in rows)
+
+
 def device_launches(fn) -> tuple[int, float]:
     """(device kernel launches, device ms) of one call of ``fn`` under
     torch.profiler: the launch count and self time of the CUDA kernel
@@ -741,12 +768,13 @@ def pool_phase(streams: int, churn_ticks: int, churn: int, reset_counts,
 RATE_IN, CHUNK48 = 48000, 4800     # 100 ms of a 48 kHz capture
 
 
-def voiced48(rows: int, n: int, seed: int, device: str) -> torch.Tensor:
-    """[rows, n] voiced audio at 48 kHz: a tone per row (f0 uniform in
+def voiced(rows: int, n: int, seed: int, device: str,
+           rate: int = RATE_IN) -> torch.Tensor:
+    """[rows, n] voiced audio at ``rate``: a tone per row (f0 uniform in
     90-300 Hz), its second harmonic and noise, drawn on the device."""
     gen = torch.Generator(device=device).manual_seed(seed)
     f0 = 90.0 + 210.0 * torch.rand(rows, 1, generator=gen, device=device)
-    ph = (2 * np.pi / RATE_IN) * f0 * torch.arange(n, device=device)
+    ph = (2 * np.pi / rate) * f0 * torch.arange(n, device=device)
     x = 0.3 * torch.sin(ph)
     x += 0.1 * torch.sin(2 * ph + 0.3)
     del ph
@@ -801,7 +829,7 @@ def rate_pitch_phase(reset_counts, read_counts, card: str,
                                  device=device)
 
     # online: the main path, its K1 launches and its bits
-    x48 = voiced48(streams, steps * CHUNK48, 48, device)
+    x48 = voiced(streams, steps * CHUNK48, 48, device)
     pipe = pipeline()
     sizes = []
     native = pipe._process_native
@@ -902,7 +930,7 @@ def rate_pitch_phase(reset_counts, read_counts, card: str,
     # offline: B x seconds ragged at 48 kHz
     n48 = seconds * RATE_IN
     l48 = ragged_lengths(n48, batch)
-    x48 = voiced48(batch, n48, 39, device)
+    x48 = voiced(batch, n48, 39, device)
     x48 = x48 * (torch.arange(n48, device=device)[None, :]
                  < torch.from_numpy(l48).to(device)[:, None])
     torch.cuda.synchronize()
@@ -1002,7 +1030,7 @@ def rate_pitch_phase(reset_counts, read_counts, card: str,
     last = np.zeros(streams, np.int64)
     for k in range(pool_ticks):
         last[leased(k)] = k
-    xp = voiced48(streams, pool_ticks * CHUNK48, 61, device)
+    xp = voiced(streams, pool_ticks * CHUNK48, 61, device)
     pool = streaming.StreamPool(pipeline())
     for _ in range(streams):
         pool.attach()
@@ -1042,6 +1070,405 @@ def rate_pitch_phase(reset_counts, read_counts, card: str,
           f"before each lease and reset at the same ticks [{card}]")
     check(rows_r > 0, "rate_pitch pool checked no recycled row")
     return {"signal_mma_highest": a.max_abs_err}
+
+
+def agreement(labels: np.ndarray, truth: np.ndarray) -> float:
+    """The share of frames whose label maps to their true speaker under
+    the best one-to-one map of labels to speakers."""
+    from scipy.optimize import linear_sum_assignment
+    _, li = np.unique(labels, return_inverse=True)
+    _, ti = np.unique(truth, return_inverse=True)
+    conf = np.zeros((li.max() + 1, ti.max() + 1))
+    np.add.at(conf, (li, ti), 1)
+    r, c = linear_sum_assignment(-conf)
+    return float(conf[r, c].sum() / len(truth))
+
+
+def turns(frames: int, speakers: int, seed: int) -> np.ndarray:
+    """[frames] speaker ids of one recording: turns of 3-15 s (300-1500
+    frames), each by a speaker other than the last (seeded)."""
+    rng = np.random.default_rng(seed)
+    truth = np.empty(frames, np.int64)
+    pos, spk = 0, int(rng.integers(speakers))
+    while pos < frames:
+        n = int(rng.integers(300, 1500))
+        truth[pos:pos + n] = spk
+        pos += n
+        spk = (spk + int(rng.integers(1, speakers))) % speakers
+    return truth
+
+
+def speaker_frames(ext, voices: np.ndarray, truth: np.ndarray,
+                   seed: int) -> np.ndarray:
+    """[T, D] float32 frames drawn from the extractor's own generative
+    model for the speakers ``truth`` [T] names: x = mu_g + M_g w_s +
+    sigma_g e, g from the UBM's weights, w_s = ``voices[s]`` (draws of
+    N(0, I)); seeded."""
+    rng = np.random.default_rng(seed)
+    G, D, K = ext.M.shape
+    offs = np.einsum("gdk,sk->sgd", ext.M, voices)
+    g = rng.choice(G, size=truth.size, p=ext.ubm.weights)
+    return (ext.ubm.means[g] + offs[truth, g] + np.sqrt(ext.ubm.vars[g])
+            * rng.standard_normal((truth.size, D))).astype(np.float32)
+
+
+def speaker_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
+                  device: str = "cuda", streams: int = STREAMS,
+                  steps: int = 30, num_gauss: int = 512,
+                  ivector_dim: int = 100, pool_ticks: int = 20,
+                  churn_ticks: int = 10, churn: int = 256,
+                  reps: int = STEP_REPS, offline_reps: int = 3,
+                  cpu_rows: int = 4, golden_frames: int = 300,
+                  world_minutes: float = 30, long_hours: float = 3,
+                  plda_speakers: int = 24, diar_chunk: int = 1000) -> None:
+    """The speaker stack at Kaldi's width (``run_ivector_common.sh``: a
+    ``num_gauss`` UBM, ``ivector_dim`` i-vectors, period 10, posterior
+    scale 0.1), trained on the card from the kaldi39 batch ``sig``:
+    ``train_diag_ubm`` over its base MFCC-13 rows (K1 at "highest", ragged
+    lengths) and ``train_ivector_extractor`` (2 iterations) over the
+    batch, timed. Online: ``StreamingPipeline(KALDI39 with the fused flags
+    at "highest", cmvn="sliding", pitch=True, ivector=)`` on ``streams``
+    voiced streams of ``steps`` 100 ms chunks — Kaldi nnet3-online's
+    [39 | 3 | K] rows — its K1 launches (one a step), its spectral and
+    pitch columns bit for bit against the same pipeline without
+    ``ivector=``, its i-vector columns within 1e-4 of ``ivector_features``
+    of the base rows (``extract_scan``); the step timed (median), beside
+    ``StreamingIvector`` alone, its idle share, device launches and peak
+    memory; a ``StreamPool`` over it, ``churn`` slots recycled a tick for
+    ``churn_ticks`` of ``pool_ticks`` ticks, recycled and untouched slots
+    bit for bit against a pipeline fed zeros before each lease and reset
+    at the same ticks. Offline on the batch: ``utterance_ivector`` (against
+    the CPU on ``cpu_rows`` rows), ``ivector_features`` (against the
+    float64 golden on ``golden_frames`` frames of row 0) and
+    ``fmllr_stats`` + ``estimate_fmllr`` over the batch as one speaker,
+    timed. Diarization on ``world_minutes`` of frames drawn from the
+    extractor's own model (4 speakers in 3-15 s turns), with a PLDA
+    trained on a seeded ``plda_speakers``-speaker world of 1.5 s
+    utterances whose first 4 speakers are the recording's
+    (``tests/test_diarize.py``'s arrangement): ``segment_ivectors``
+    (against the CPU), ``plda_affinity`` on the device and on the host, ``diarize`` (labels against the CPU's)
+    and ``StreamingDiarizer`` fed ``diar_chunk``-frame chunks, each timed
+    with its frame agreement against the truth, and ``diarize_long`` over
+    ``long_hours`` hours (0 leaves it out)."""
+    import time
+
+    from tpufeat_torch import KALDI39, StreamingPipeline, extract
+    from tpufeat_torch import diarization, fmllr, ivector, pitch, plda
+    from tpufeat_torch import streaming
+    from tpufeat_torch.reference import cpu
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(KALDI39, cmvn="sliding",
+                              **dict(FUSED, **HIGHEST))
+    base_cfg = dataclasses.replace(cfg, deltas=False, cmvn="none")
+    pcfg = pitch.config_for(base_cfg)
+    B, n = sig.shape
+    lengths = ragged_lengths(n, B)
+    K = ivector_dim
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the training data: the base rows of the kaldi39 batch
+    reset_counts()
+    res = extract(torch.from_numpy(sig).to(device),
+                  torch.from_numpy(lengths).to(device), base_cfg)
+    torch.cuda.synchronize()
+    read_counts(f"speaker base rows (extract, B={B} ragged)",
+                {"signal_features_mma": 1}, highest=True)
+    feats, valid, nf = res.features, res.mask, res.num_frames
+    frames = feats[valid]
+    ubm, ubm_s = clock(lambda: ivector.train_diag_ubm(frames, num_gauss,
+                                                      seed=0))
+    (ext, objs), ext_s = clock(lambda: ivector.train_ivector_extractor(
+        ubm, feats, nf.cpu().numpy(), ivector_dim=K, iters=2, seed=0,
+        return_objective=True))
+    print(f"speaker training: train_diag_ubm(num_gauss={num_gauss}) over "
+          f"{frames.shape[0]} base MFCC-13 rows of the kaldi39 batch in "
+          f"{ubm_s:.2f} s (average log-likelihood "
+          f"{ivector.avg_log_like(ubm, frames):.4f}); "
+          f"train_ivector_extractor(ivector_dim={K}, iters=2) over the "
+          f"B={B} ragged batch in {ext_s:.2f} s (EM objectives "
+          f"{['%.6g' % o for o in objs]}) [{card}]")
+    check(bool(np.isfinite(objs).all()), "speaker extractor EM objective")
+
+    # online: the main path, its K1 launches, its columns
+    x16 = voiced(streams, steps * CHUNK, 16, device, rate=SR)
+
+    def pipeline(**kw):
+        return StreamingPipeline(cfg, streams, pitch=True, device=device,
+                                 **kw)
+    pipe = pipeline(ivector=ext)
+    reset_counts()
+    outs = [pipe.process(x16[:, k * CHUNK:(k + 1) * CHUNK])
+            for k in range(steps)]
+    torch.cuda.synchronize()
+    read_counts(f"speaker StreamingPipeline.process (pitch, i-vectors; "
+                f"{streams} streams x {steps} steps of {CHUNK} samples)",
+                {"signal_features_mma": steps}, highest=True)
+    outs.append(pipe.flush())
+    out = torch.cat(outs, dim=1)
+    del outs, pipe
+    Fp = pcfg.num_frames(steps * CHUNK)
+    check(out.shape == (streams, Fp, 42 + K),
+          f"speaker rows {tuple(out.shape)}, want {(streams, Fp, 42 + K)}")
+    check(bool(torch.isfinite(out).all()), "speaker rows finite")
+    plain = pipeline()
+    pos = 0
+    for k in range(steps + 1):
+        o = plain.process(x16[:, k * CHUNK:(k + 1) * CHUNK]) \
+            if k < steps else plain.flush()
+        check(torch.equal(o, out[:, pos:pos + o.shape[1], :42]),
+              f"speaker step {k}: spectral/pitch columns differ from the "
+              "pipeline without ivector=")
+        pos += o.shape[1]
+    check(pos == Fp, "speaker rows of the pipeline without ivector=")
+    del plain
+    worst = 0.0
+    for s0 in range(0, streams, STREAM_BLOCK):
+        base = streaming.extract_scan(x16[s0:s0 + STREAM_BLOCK], base_cfg,
+                                      CHUNK)
+        want = ivector.ivector_features(ext, base)[:, :Fp]
+        worst = max(worst, scaled_err(out[s0:s0 + STREAM_BLOCK, :, 42:],
+                                      want)[1])
+        del base, want
+    print(f"speaker StreamingPipeline S={streams} x {steps} steps of "
+          f"{CHUNK} samples: {Fp} rows of {42 + K} columns; spectral and "
+          f"pitch columns bit-identical to the pipeline without ivector=; "
+          f"i-vector columns vs ivector_features of extract_scan's base "
+          f"rows: scaled {worst:.3e} (limit {TOL_IVECTOR}) [{card}]")
+    check(worst <= TOL_IVECTOR, f"speaker i-vector columns {worst:.3e}")
+    del out
+
+    # the steady step, and StreamingIvector alone
+    pipe = pipeline(ivector=ext)
+    chunks = [x16[:, k * CHUNK:(k + 1) * CHUNK].contiguous()
+              for k in range(steps)]
+    warm = -(-(cfg.cmvn_min_window + 2 * cfg.delta_order * cfg.delta_window
+               + 15 + 2 * pcfg.delta_window) * cfg.hop_length
+             // CHUNK) + 1
+    for chunk in chunks[:warm]:
+        pipe.process(chunk)
+    feed = itertools.cycle(chunks[warm:])
+    check(pipe.process(next(feed)).shape[1] > 0, "speaker step emits")
+    per = CHUNK // cfg.hop_length
+    rows10 = frames[:streams * per].reshape(streams, per, -1).contiguous()
+    siv = ivector.StreamingIvector(ext, streams, device=device)
+    ms, times, peak = time_paths({
+        "step": lambda: pipe.process(next(feed)),
+        "ivector_only": lambda: siv.process(rows10)}, reps)
+    wall, dev, idle = idle_share(lambda: pipe.process(next(feed)), 10)
+    n_step, _ = device_launches(lambda: pipe.process(next(feed)))
+    n_iv, iv_dev = device_launches(lambda: siv.process(rows10))
+    iv_top = top_kernels(lambda: siv.process(rows10))
+    siv.check()
+    budget_ms = 1e3 * CHUNK / SR
+    print(f"speaker step: median {ms['step']:.3f} ms per step of {streams} "
+          f"streams x {CHUNK} samples ({42 + K}-dim rows), "
+          f"{100 * ms['step'] / budget_ms:.2f} % of the {budget_ms:.0f} ms "
+          f"budget; StreamingIvector alone {ms['ivector_only']:.3f} ms "
+          f"({100 * ms['ivector_only'] / ms['step']:.1f} %, {n_iv} device "
+          f"launches, {iv_dev:.3f} ms of device time); runs "
+          f"{['%.3f' % t for t in times['step']]}; peak memory "
+          f"{peak['step'] / 2**20:.0f} MiB (StreamingIvector alone "
+          f"{peak['ivector_only'] / 2**20:.0f} MiB); under torch.profiler "
+          f"wall {wall:.3f} ms, device {dev:.3f} ms, idle share "
+          f"{idle:.3f}; {n_step} device launches a step; StreamingIvector's "
+          f"largest device kernels: {iv_top} [{card}]")
+    del pipe, chunks, feed, siv, x16
+
+    # the pool: churn slots recycled a tick, against a zero-fed oracle
+    half = streams // 2
+
+    def leased(k):
+        return [((k - 1) * churn + j) % half for j in range(churn)] \
+            if 0 < k <= churn_ticks else []
+    last = np.zeros(streams, np.int64)
+    for k in range(pool_ticks):
+        last[leased(k)] = k
+    xp = voiced(streams, pool_ticks * CHUNK, 61, device, rate=SR)
+    pool = streaming.StreamPool(pipeline(ivector=ext))
+    for _ in range(streams):
+        pool.attach()
+    got = []
+    reset_counts()
+    for k in range(pool_ticks):
+        for s in leased(k):
+            pool.detach(s)
+        for _ in leased(k):
+            pool.attach()
+        got.append(pool.process_batch(
+            xp[:, k * CHUNK:(k + 1) * CHUNK]).block()[0])
+    torch.cuda.synchronize()
+    read_counts(f"speaker pool, {pool_ticks} ticks of {streams} slots "
+                f"({churn} recycled a tick for {churn_ticks} ticks)",
+                {"signal_features_mma": pool_ticks}, highest=True)
+    del pool
+    oracle = pipeline(ivector=ext)
+    untouched = torch.from_numpy(last == 0).to(device)
+    rows_u = rows_r = 0
+    for k in range(pool_ticks):
+        oracle.reset_rows(leased(k))
+        zero = torch.from_numpy(last > k).to(device)[:, None]
+        want = oracle.process(torch.where(
+            zero, 0.0, xp[:, k * CHUNK:(k + 1) * CHUNK]))
+        check(got[k].shape == want.shape, f"speaker pool tick {k} shape")
+        mine = ~untouched & torch.from_numpy(last <= k).to(device)
+        check(torch.equal(got[k][untouched], want[untouched]),
+              f"speaker pool tick {k}: an untouched slot differs")
+        check(torch.equal(got[k][mine], want[mine]),
+              f"speaker pool tick {k}: a recycled slot differs")
+        rows_u += int(untouched.sum()) * want.shape[1]
+        rows_r += int(mine.sum()) * want.shape[1]
+    print(f"speaker pool: {int(untouched.sum())} untouched slots bit for "
+          f"bit on {rows_u} rows, {int((last > 0).sum())} recycled slots "
+          f"bit for bit on {rows_r} rows against a pipeline fed zeros "
+          f"before each lease and reset at the same ticks [{card}]")
+    check(rows_r > 0, "speaker pool checked no recycled row")
+    del oracle, got, xp
+
+    # offline: the batch's utterance i-vectors, online i-vectors, fMLLR
+    mask = valid.float()
+    reset_counts()
+    utt = ivector.utterance_ivector(ext, feats, mask)
+    ivf = ivector.ivector_features(ext, feats, lengths=nf)
+    stats = fmllr.fmllr_stats(ubm, feats, nf)
+    torch.cuda.synchronize()
+    read_counts("speaker offline (utterance_ivector, ivector_features, "
+                "fmllr_stats)", {})
+    W, est_s = clock(lambda: fmllr.estimate_fmllr(*stats))
+    ivf_top = top_kernels(lambda: ivector.ivector_features(ext, feats,
+                                                           lengths=nf))
+    check(bool(np.isfinite(W).all()), "speaker fMLLR transform finite")
+    want = ivector.utterance_ivector(ext, feats[:cpu_rows].cpu(),
+                                     mask[:cpu_rows].cpu(), device="cpu")
+    gap = (utt[:cpu_rows].cpu() - want).abs()
+    ok = bool((gap <= 2e-4 + 1e-3 * want.abs()).all())
+    gw = cpu.ivector_features(
+        feats[0, :golden_frames].double().cpu().numpy(), ubm.weights,
+        ubm.means, ubm.vars, ext.M, period=10, posterior_scale=0.1)
+    g_err, g_rel = scaled_err(ivf[0, :golden_frames],
+                              torch.from_numpy(gw).to(device))
+    solves = B * -(-feats.shape[1] // 10)
+    audio = float(lengths.sum()) / SR
+
+    def operand_upload():
+        """The extractor's operands made and uploaded again: the cost the
+        per-device cache saves each call."""
+        ext.__dict__.pop("_device_cache")
+        return ext.device_operands(device)
+    ms, times, peak = time_paths({
+        "operand_upload": operand_upload,
+        "utterance_ivector": lambda: ivector.utterance_ivector(ext, feats,
+                                                               mask),
+        "ivector_features": lambda: ivector.ivector_features(ext, feats,
+                                                             lengths=nf),
+        "fmllr_stats": lambda: fmllr.fmllr_stats(ubm, feats, nf)},
+        offline_reps)
+    print(f"speaker offline B={B} x {n / SR:.0f} s ragged ({audio:.0f} s "
+          f"of audio): utterance_ivector {ms['utterance_ivector']:.3f} ms "
+          f"(RTFx {audio / (ms['utterance_ivector'] / 1e3):.0f}; {cpu_rows} "
+          f"rows vs the CPU: max gap {gap.max().item():.3e}, limit atol "
+          f"2e-4 + rtol 1e-3), ivector_features "
+          f"{ms['ivector_features']:.3f} ms ({solves} solves; peak memory "
+          f"{peak['ivector_features'] / 2**20:.0f} MiB; vs the float64 "
+          f"golden on {golden_frames} frames: scaled {g_rel:.3e}, limit "
+          f"{TOL_GOLDEN}; its largest device kernels: {ivf_top}), "
+          f"fmllr_stats {ms['fmllr_stats']:.3f} ms + "
+          f"estimate_fmllr {1e3 * est_s:.1f} ms on the host (beta "
+          f"{stats[0]:.0f}); the operands made and uploaded again (what "
+          f"the per-device cache saves a call) {ms['operand_upload']:.3f} "
+          f"ms; runs "
+          f"{ {k: ['%.3f' % t for t in v] for k, v in times.items()} } "
+          f"[{card}]")
+    check(ok, f"speaker utterance_ivector vs CPU {gap.max().item():.3e}")
+    check(g_rel <= TOL_GOLDEN, f"speaker ivector_features vs golden "
+          f"{g_rel:.3e}")
+    del utt, ivf, feats, valid, frames, res
+
+    # diarization on a world drawn from the extractor's model
+    # a population of speakers, w_s ~ N(0, I); the recordings' 4 voices
+    # are its first 4, as tests/test_diarize.py's recording voices are the
+    # first of the PLDA's population
+    voices = np.random.default_rng(24).standard_normal((plda_speakers, K))
+    ids = np.arange(plda_speakers * 16) % plda_speakers
+    utts = speaker_frames(ext, voices, np.repeat(ids, 150), 25).reshape(
+        len(ids), 150, -1)
+    ivs = ivector.utterance_ivector(ext, utts, device=device)
+    model, plda_s = clock(lambda: plda.train_plda(
+        ivs.double().cpu().numpy(), ids, iters=10))
+    T = int(world_minutes * 6000)
+    truth = turns(T, 4, 30)
+    world = speaker_frames(ext, voices, truth, 30)
+    xw = torch.from_numpy(world).to(device)
+    reset_counts()
+    seg, spans = diarization.segment_ivectors(ext, xw)
+    torch.cuda.synchronize()
+    read_counts("speaker segment_ivectors", {})
+    seg_cpu, _ = diarization.segment_ivectors(ext, world, device="cpu")
+    seg_gap = (seg.cpu() - seg_cpu).abs()
+    seg_ok = bool((seg_gap <= 2e-4 + 1e-4 * seg_cpu.abs()).all())
+    aff = diarization.plda_affinity(model, seg)
+    aff_host = diarization.plda_affinity(model, seg, host=True)
+    aff_gap = float(np.abs(aff - aff_host).max())
+    ms, times, _ = time_paths({
+        "segment_ivectors": lambda: diarization.segment_ivectors(ext, xw),
+        "plda_affinity": lambda: diarization.plda_affinity(model, seg),
+        "plda_affinity_host": lambda: diarization.plda_affinity(
+            model, seg, host=True)}, offline_reps)
+    (labels, _), diar_s = clock(lambda: diarization.diarize(
+        ext, model, xw, num_speakers=4))
+    cpu_labels, _ = diarization.diarize(ext, model, world, num_speakers=4,
+                                        device="cpu")
+    same = float((labels == cpu_labels).mean())
+
+    def online():
+        sd = diarization.StreamingDiarizer(ext, model, max_speakers=4,
+                                           device=device)
+        got = [sd.process(world[p:p + diar_chunk])[0]
+               for p in range(0, T, diar_chunk)]
+        return np.concatenate(got + [sd.flush()[0]])
+    online_labels, online_s = clock(online)
+    print(f"speaker diarization, {world_minutes} min drawn from the "
+          f"extractor's model (4 of the PLDA's speakers in 3-15 s turns): "
+          f"train_plda on "
+          f"{len(ids)} utterances of {plda_speakers} speakers in "
+          f"{plda_s:.2f} s; segment_ivectors {ms['segment_ivectors']:.3f} ms "
+          f"for {len(spans)} windows (vs the CPU: max gap "
+          f"{seg_gap.max().item():.3e}, limit atol 2e-4 + rtol 1e-4); "
+          f"plda_affinity {ms['plda_affinity']:.3f} ms on the device, "
+          f"{ms['plda_affinity_host']:.3f} ms with host=True (max gap "
+          f"{aff_gap:.3e}); diarize {diar_s:.2f} s, frame agreement "
+          f"{agreement(labels, truth):.4f} with the truth, labels equal "
+          f"to the CPU's on {same:.4f} of frames (limit 0.99); "
+          f"StreamingDiarizer ({diar_chunk}-frame chunks) {online_s:.2f} s, "
+          f"frame agreement {agreement(online_labels, truth):.4f}; runs "
+          f"{ {k: ['%.3f' % t for t in v] for k, v in times.items()} } "
+          f"[{card}]")
+    check(seg_ok, f"speaker segment i-vectors vs CPU "
+          f"{seg_gap.max().item():.3e}")
+    check(aff_gap <= 5e-3 + 1e-4 * float(np.abs(aff_host).max()),
+          f"speaker plda_affinity device vs host {aff_gap:.3e}")
+    check(same >= 0.99, f"speaker diarize labels vs CPU {same:.4f}")
+    check(online_labels.shape == (T,), "speaker StreamingDiarizer frames")
+    del xw, seg, seg_cpu, aff, aff_host
+    if long_hours:
+        T3 = int(long_hours * 360000)
+        truth = turns(T3, 4, 31)
+        world = speaker_frames(ext, voices, truth, 31)
+        xw = torch.from_numpy(world).to(device)
+        (labels, _), long_s = clock(lambda: diarization.diarize_long(
+            ext, model, xw, num_speakers=4))
+        print(f"speaker diarize_long over {long_hours} h ({T3} frames): "
+              f"{long_s:.2f} s (RTFx {T3 / 100 / long_s:.0f}), frame "
+              f"agreement {agreement(labels, truth):.4f} [{card}]")
+        del xw
+    print(f"speaker phase: {time.perf_counter() - t_phase:.1f} s in all "
+          f"[{card}]")
 
 
 def shipped_pass(wav_dir: str, cfg, batch: int, device: str) -> float:
@@ -1958,6 +2385,10 @@ def main() -> int:
                                      card).items():
         kernel_rows[row]["max_abs_err"] = max(
             kernel_rows[row]["max_abs_err"], err)
+
+    # 9f. the speaker stack: training, the online pipeline with i-vectors
+    # (142-dim rows) and its pool, offline i-vectors and fMLLR, diarization
+    speaker_phase(sig, reset_counts, read_counts, card)
 
     # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its

@@ -1,5 +1,8 @@
 """The JAX side of ``tests/test_torch_stream_pool.py``: the reference
-``tpufeat.streaming.StreamPool`` driven through :data:`SCRIPT`.
+``tpufeat.streaming.StreamPool`` driven through :data:`SCRIPT`, over each
+wrapper of :data:`WRAPPERS` (the "ivector" pipeline's extractor is the one
+``tests/_jax_speaker_oracle.py`` trains; its arrays go to OUT.npz as
+``model/<field>``).
 
 Run as a script (``python tests/_jax_pool_oracle.py OUT.npz``) in a process
 of its own, as ``tests/_jax_pipeline_oracle.py`` runs the reference's
@@ -25,6 +28,7 @@ WRAPPERS = {
     "sliding": ("pipeline", SLIDING),
     "sliding600": ("pipeline", dict(cmvn="sliding")),   # window 600, min 100
     "frontend": ("frontend", {}),
+    "ivector": ("ivector", dict(cmvn="none")),
 }
 #: the pool's life: ("attach", n) leases n slots, ("detach", [slots])
 #: returns them, ("tick", "dict") feeds every attached slot its chunk,
@@ -74,17 +78,21 @@ def main(out: str) -> None:
     from tpufeat import streaming
     from tpufeat.config import KALDI39, MFCC13_HTK
 
-    results = {}
+    import _jax_speaker_oracle as speaker
+    ext = speaker.train_extractor()
+    results = speaker.model_arrays(ext)
     for name, (kind, change) in WRAPPERS.items():
         wrapper = streaming.StreamingFrontend(MFCC13_HTK, CAP) \
             if kind == "frontend" else streaming.StreamingPipeline(
-                dataclasses.replace(KALDI39, **change), batch_size=CAP)
+                dataclasses.replace(KALDI39, **change), batch_size=CAP,
+                ivector=ext if kind == "ivector" else None)
         got = drive(streaming.StreamPool(wrapper), signal())
         results.update({f"{name}/{k}": v for k, v in got.items()})
     np.savez(out, **results)
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.dirname(here))
+    sys.path.insert(0, here)
     main(sys.argv[1])

@@ -326,6 +326,117 @@ def test_pipeline_segments_and_utt2spk_cmvn(corpus, tmp_path):
         assert _scaled(ps[k], rs[k]) <= TOL
 
 
+
+@pytest.fixture
+def speaker_models(corpus, tmp_path):
+    """A UBM (G=4) and an extractor (K=3) the reference trains on the
+    corpus' mfcc13 features, saved as npz, and an utt2spk of two
+    speakers."""
+    from tpufeat import ivector as jiv
+    root, _ = corpus
+    feats = [f for _, f in jpipeline.extract_corpus(root,
+                                                     JPRESETS["mfcc13"])]
+    ubm = jiv.train_diag_ubm(np.concatenate(feats), 4, iters=2,
+                             final_iters=3, seed=0)
+    ext = jiv.train_ivector_extractor(ubm, feats, ivector_dim=3, iters=2,
+                                      seed=1)
+    ubm.save(str(tmp_path / "ubm.npz"))
+    ext.save(str(tmp_path / "ext.npz"))
+    u2s = tmp_path / "utt2spk"
+    u2s.write_text("u00 A\nu01 B\nu02 A\nu03 B\nu04 A\nu05 B\n"
+                   "sub/u00 A\n")
+    return str(tmp_path / "ubm.npz"), str(tmp_path / "ext.npz"), str(u2s)
+
+
+def test_pipeline_ivector_and_fmllr_arks(corpus, speaker_models, tmp_path):
+    """--ivector-extractor/--ivector-ark and --fmllr-ubm/--fmllr-ark: the
+    reference's keys; its i-vectors within 1e-3 (the features agree to
+    1e-4, and an estimate magnifies that); transforms whose fMLLR
+    objective on the port's statistics of each speaker is the
+    reference's transform's to within what the estimator's 20 sweeps
+    leave short of 40 (on 340 frames a speaker the optimum is flat and
+    slow to reach: f32 statistics 3e-7 apart move the transform by 0.1
+    and 20 more sweeps move it by 3, while the objective barely moves);
+    and archives byte for byte what the reference's writers make of the
+    same vectors."""
+    from tpufeat_torch import fmllr, ivector
+    root, _ = corpus
+    ubm, ext, u2s = speaker_models
+    got = {}
+    for name, main in (("port", pipeline.main), ("reference",
+                                                 jpipeline.main)):
+        iv_ark = str(tmp_path / f"{name}_iv.ark")
+        fm_ark = str(tmp_path / f"{name}_fmllr.ark")
+        argv = [root, str(tmp_path / f"{name}.npz"), "--preset", "mfcc13",
+                "--batch", "4", "--utt2spk", u2s,
+                "--ivector-extractor", ext, "--ivector-ark", iv_ark,
+                "--fmllr-ubm", ubm, "--fmllr-ark", fm_ark,
+                "--fmllr-min-count", "100"]
+        assert main(argv + (["--device", "cpu"] if name == "port"
+                            else [])) == 0
+        got[name] = (iv_ark, fm_ark)
+    (iv_p, fm_p), (iv_r, fm_r) = got["port"], got["reference"]
+    vp, vr = feats_io.read_kaldi_vec_ark(iv_p), feats_io.read_kaldi_vec_ark(
+        iv_r)
+    assert list(vp) == list(vr) and len(vp) == 7
+    for k in vp:
+        assert vp[k].dtype == np.float32
+        assert _scaled(vp[k], vr[k]) <= 1e-3, k
+    tp, tr = feats_io.read_kaldi_ark(fm_p), feats_io.read_kaldi_ark(fm_r)
+    assert list(tp) == list(tr) == ["A", "B"]
+    feats = np.load(str(tmp_path / "port.npz"))
+    spk_of = dict(ln.split() for ln in open(u2s))
+    eye = np.concatenate([np.eye(13), np.zeros((13, 1))], axis=1)
+    for k in tp:
+        assert tp[k].shape == (13, 14)
+        stats = fmllr.fmllr_stats(
+            ivector.DiagUbm.load(ubm),
+            np.concatenate([feats[r] for r in feats.files
+                            if spk_of[r[:-4]] == k]), device="cpu")
+        q_port, q_ref, q_eye, q20, q40 = (
+            fmllr.fmllr_objective(*stats, W) for W in (
+                tp[k], tr[k], eye,
+                fmllr.estimate_fmllr(*stats, min_count=100, iters=20),
+                fmllr.estimate_fmllr(*stats, min_count=100, iters=40)))
+        assert abs(q_port - q_ref) <= q40 - q20, k
+        assert q_port - q_eye > 10 * (q40 - q20), k
+    same_iv, same_fm = str(tmp_path / "iv.ark"), str(tmp_path / "fm.ark")
+    jfeats_io.write_kaldi_vec_ark(same_iv, vp, scp_path=same_iv[:-4] + ".scp")
+    jfeats_io.write_kaldi_ark(same_fm, tp, scp_path=same_fm[:-4] + ".scp")
+    for mine, theirs in ((iv_p, same_iv), (fm_p, same_fm)):
+        for ext_ in (".ark", ".scp"):
+            a = open(mine[:-4] + ext_, "rb").read()
+            b = open(theirs[:-4] + ext_, "rb").read()
+            if ext_ == ".scp":      # the same keys at the same offsets
+                a = a.replace(mine.encode(), b"")
+                b = b.replace(theirs.encode(), b"")
+            assert a == b, ext_
+
+
+def test_extract_corpus_ivectors_match_reference(corpus, speaker_models):
+    from tpufeat import ivector as jiv
+    from tpufeat_torch import ivector
+    root, _ = corpus
+    _, ext, _ = speaker_models
+    mine, ref = {}, {}
+    for _ in pipeline.extract_corpus(root, PRESETS["mfcc13"], batch_size=3,
+                                     ivector=ivector.IvectorExtractor.load(
+                                         ext),
+                                     ivectors=mine, device="cpu"):
+        pass
+    for _ in jpipeline.extract_corpus(root, JPRESETS["mfcc13"],
+                                      batch_size=3,
+                                      ivector=jiv.IvectorExtractor.load(ext),
+                                      ivectors=ref):
+        pass
+    assert sorted(mine) == sorted(ref) and len(mine) == 7
+    for k in mine:
+        assert _scaled(mine[k], ref[k]) <= 1e-3, k
+    with pytest.raises(ValueError, match="UBM dim"):
+        next(pipeline.extract_corpus(root, KALDI39,
+                                     ivector=ivector.IvectorExtractor.load(
+                                         ext), ivectors={}, device="cpu"))
+
 def test_pipeline_dither_generator(corpus):
     root, _ = corpus
     cfg = dataclasses.replace(PRESETS["fbank80"], dither=1.0)
@@ -343,18 +454,25 @@ def test_pipeline_dither_generator(corpus):
 
 
 def test_pipeline_refuses_unported_options(corpus, tmp_path):
+    """dp= / --dp (item 13) is still refused; the i-vector and fMLLR
+    surface is ported, and refuses only a call that lacks its other
+    half."""
     root, _ = corpus
-    for kw, item in ((dict(ivector=object()), "item 11"),
-                     (dict(dp=True), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
-                                         **kw))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
+                                     dp=True))
+    with pytest.raises(ValueError, match="ivectors= dict"):
+        next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
+                                     ivector=object()))
     out = str(tmp_path / "o.npz")
-    for flag, item in (("--dp", "item 13"),
-                       ("--fmllr-ubm", "item 11"),
-                       ("--ivector-extractor", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            pipeline.main([root, out, flag, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        pipeline.main([root, out, "--dp", "--device", "cpu"])
+    for flags, match in ((["--fmllr-ubm", "u.npz"], "--fmllr-ark"),
+                         (["--fmllr-ark", "f.ark"], "--fmllr-ubm"),
+                         (["--ivector-ark", "i.ark"],
+                          "--ivector-extractor")):
+        with pytest.raises(ValueError, match=match):
+            pipeline.main([root, out, *flags, "--device", "cpu"])
 
 
 def test_pipeline_rate_mismatch_rejected(tmp_path):

@@ -1,14 +1,15 @@
 """The port's ``StreamPool`` and ``PoolRows`` against
 ``tpufeat.streaming.StreamPool``, and the recycle contracts on their own.
 
-The cases of ``tests/test_stream_pool.py::TestStreamPool`` that apply (the
-i-vector case waits for ROADMAP.md queue 1, item 11): lease, recycle,
-trim, errors, the pool over a bare front-end, ``process_batch`` against
-the dict path, the tick's mapping and block, and the recycled slot
-against the zeros-prefix oracle. The reference's pool runs in a process of
-its own (``tests/_jax_pool_oracle.py``) through one script of attaches,
+The cases of ``tests/test_stream_pool.py``: lease, recycle, trim,
+errors, the pool over a bare front-end, ``process_batch`` against the
+dict path, the tick's mapping and block, the recycled slot against the
+zeros-prefix oracle, and the pool over a pipeline with i-vectors
+(``TestPoolWithIvector``). The reference's pool runs in a process of its
+own (``tests/_jax_pool_oracle.py``) through one script of attaches,
 detaches and ticks over ``StreamingPipeline(KALDI39)`` without CMVN, with
-sliding CMVN and over ``StreamingFrontend(MFCC13_HTK)``.
+sliding CMVN, with i-vectors (an extractor the reference trains, carried
+across) and over ``StreamingFrontend(MFCC13_HTK)``.
 
 Tolerances, relative to max(1, |want|.max()):
 - the port's tick rows against the reference's on the same ticks: the same
@@ -31,7 +32,7 @@ import torch
 
 import _jax_pool_oracle as oracle
 from tpufeat_torch import streaming
-from tpufeat_torch.config import KALDI39, MFCC13_HTK
+from tpufeat_torch.config import KALDI39, MFCC13_HTK, speaker_from_reference
 
 KALDI39_NOCMVN = dataclasses.replace(KALDI39, cmvn="none")
 SLIDING = dataclasses.replace(KALDI39, **oracle.SLIDING)
@@ -47,12 +48,22 @@ def _pipe(cfg, b):
     return streaming.StreamingPipeline(cfg, batch_size=b, device="cpu")
 
 
-def _wrapper(name):
+def _extractor(reference):
+    """The reference's extractor, carried across."""
+    return speaker_from_reference(
+        {k[len("model/"):]: v for k, v in reference.items()
+         if k.startswith("model/")})
+
+
+def _wrapper(name, reference):
     kind, change = oracle.WRAPPERS[name]
     if kind == "frontend":
         return streaming.StreamingFrontend(MFCC13_HTK, oracle.CAP,
                                            device="cpu")
-    return _pipe(dataclasses.replace(KALDI39, **change), oracle.CAP)
+    return streaming.StreamingPipeline(
+        dataclasses.replace(KALDI39, **change), batch_size=oracle.CAP,
+        ivector=_extractor(reference) if kind == "ivector" else None,
+        device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +86,7 @@ def test_ticks_match_tpufeat_pool(name, reference):
     first min_window frames (ticks 3 and 9 with window 600) drops those
     rows too, so there the port returns the tail of the reference's rows
     (the rows it leaves out are not yet exact in the reference)."""
-    got = oracle.drive(streaming.StreamPool(_wrapper(name)),
+    got = oracle.drive(streaming.StreamPool(_wrapper(name, reference)),
                        oracle.signal())
     want = {k[len(name) + 1:]: v for k, v in reference.items()
             if k.startswith(name + "/")}
@@ -279,3 +290,40 @@ def test_pipeline_resets_wait_for_the_next_step():
     pipe.reset_rows([1])
     pipe.set_state(saved)                           # drops the reset
     assert pipe.state()["frontend"].buf[1].any()
+
+
+class TestPoolWithIvector:
+    """``tests/test_stream_pool.py::TestPoolWithIvector``: the pool over a
+    pipeline with i-vectors leases and recycles like any other, and a
+    recycled slot's i-vector columns restart at the prior. The spectral
+    columns follow the zeros-prefix oracle; the i-vector stage restarts
+    its adaptation instead (a zeros-prefix stream has adapted to silence),
+    so the oracle's stage is reset after its zero tick. 1e-5: the oracle
+    has one row, the pool three (the CPU's BLAS may round another row
+    count otherwise)."""
+
+    def test_pool_over_ivector_pipeline(self, reference):
+        ext = _extractor(reference)
+        b, K = 3, ext.ivector_dim
+        pipe = streaming.StreamingPipeline(KALDI39_NOCMVN, batch_size=b,
+                                           ivector=ext, device="cpu")
+        assert pipe.warmup_rows == _pipe(KALDI39_NOCMVN, b).warmup_rows
+        pool = streaming.StreamPool(pipe)
+        s0 = pool.attach()
+        x = _sig(b, 9600, 71)
+        out, _ = pool.process({s0: x[s0, :4800]}).block()
+        assert out.shape == (b, out.shape[1], 39 + K)
+        pool.detach(s0)
+        s1 = pool.attach()
+        assert s1 == s0
+        rows2 = pool.process({s1: x[s1, :4800]})
+        fresh = streaming.StreamingPipeline(KALDI39_NOCMVN, batch_size=1,
+                                            ivector=ext, device="cpu")
+        fresh.process(np.zeros((1, 4800), np.float32))
+        fresh._ivector.reset()
+        fresh._iv_fifo = fresh._iv_fifo * 0.0
+        want = fresh.process(x[None, s1, :4800])[0]
+        got = rows2[s1]
+        skip = pipe.warmup_rows
+        torch.testing.assert_close(got, want[skip:][: got.shape[0]],
+                                   rtol=0, atol=1e-5)

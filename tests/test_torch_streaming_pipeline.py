@@ -290,7 +290,9 @@ def test_same_input_rate_is_the_pipeline():
 @pytest.mark.parametrize("option", [dict(ivector=object())],
                          ids=["ivector"])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """ivector= is ported (tests/test_torch_streaming_pipeline_ivector.py):
+    what it refuses now is an object that is no IvectorExtractor."""
+    with pytest.raises(TypeError, match="IvectorExtractor"):
         streaming.StreamingPipeline(KALDI39, device="cpu", **option)
 
 

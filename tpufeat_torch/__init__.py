@@ -8,8 +8,10 @@ the streaming front-end, the online config-3 pipeline
 transform, Kaldi pitch rows, a 48 kHz or other input rate) and its slot
 manager (``StreamPool``), the polyphase resampler (``resampling``), the
 pitch tracker (``pitch``), augmentation and VAD (``augment``), the
-beamformer (``beamform``), and the host tools (``feats_io``, ``data``,
-``cli``, the corpus pipeline ``pipeline``), with
+beamformer (``beamform``), the speaker stack (``ivector``, ``plda``,
+``fmllr``, ``diarization``; i-vectors in ``StreamingPipeline`` too), and
+the host tools (``feats_io``, ``data``, ``cli``, the corpus pipeline
+``pipeline``), with
 the fused signal kernel and the two staged kernels written in CUDA for
 ``sm_90a``. It imports torch and numpy, never jax or ``tpufeat``, and
 builds no CUDA code at import:

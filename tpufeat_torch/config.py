@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureConfig:
@@ -403,3 +405,27 @@ def from_reference(fields: dict) -> FeatureConfig:
     if unknown:
         raise ValueError(f"fields unknown to FeatureConfig: {unknown}")
     return FeatureConfig(**fields)
+
+
+def speaker_from_reference(fields: dict):
+    """Build the port's speaker model from a ``tpufeat`` model's numpy
+    fields, e.g. ``speaker_from_reference(dict(weights=ubm.weights,
+    means=ubm.means, vars=ubm.vars))``: {weights, means, vars} gives an
+    ``ivector.DiagUbm``, the same and ``M`` an ``ivector.IvectorExtractor``,
+    {mean, transform, psi} a ``plda.Plda``. The arrays are copied as
+    float64, the models' own precision."""
+    from tpufeat_torch.ivector import DiagUbm, IvectorExtractor
+    from tpufeat_torch.plda import Plda
+
+    kinds = {frozenset({"weights", "means", "vars"}): "ubm",
+             frozenset({"weights", "means", "vars", "M"}): "extractor",
+             frozenset({"mean", "transform", "psi"}): "plda"}
+    kind = kinds.get(frozenset(fields))
+    if kind is None:
+        raise ValueError(f"fields {sorted(fields)} name no speaker model; "
+                         f"want one of {[sorted(k) for k in kinds]}")
+    f = {k: np.array(v, np.float64) for k, v in fields.items()}
+    if kind == "plda":
+        return Plda(f["mean"], f["transform"], f["psi"])
+    ubm = DiagUbm(f["weights"], f["means"], f["vars"])
+    return ubm if kind == "ubm" else IvectorExtractor(ubm, f["M"])

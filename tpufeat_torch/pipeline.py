@@ -16,9 +16,13 @@ slower (``chip_smoke.py``'s corpus phase measures all four settings).
 thread, as part of getting the batch ready, so the card's side only ever
 sees ``cfg.sample_rate``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``ivector=`` and
-the ``--ivector-*`` / ``--fmllr-*`` estimation flags (ROADMAP.md queue 1,
-item 11), ``dp=`` / ``--dp`` (item 13).
+``ivector=`` / ``--ivector-extractor`` adds one utterance i-vector per
+file (``ivector-extract``), written with ``--ivector-ark``;
+``--fmllr-ubm`` estimates one fMLLR transform per speaker
+(``gmm-est-fmllr``), written with ``--fmllr-ark``; both on ``device``.
+
+Not ported yet, and refused with ``NotImplementedError``: ``dp=`` /
+``--dp`` (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from tpufeat_torch import cli, data, features, feats_io, io, resampling
+from tpufeat_torch import cli, data, features, feats_io, fmllr, io
+from tpufeat_torch import ivector as ivmod
+from tpufeat_torch import resampling
 from tpufeat_torch.config import PRESETS, FeatureConfig
 
 #: extract-segments' end-time forgiveness: segment specs are usually
@@ -209,6 +215,13 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     ``generator``: the dither's noise source on ``device``, required iff
     ``cfg.dither > 0``; the batches draw from it in turn.
 
+    ``ivector``: an :class:`tpufeat_torch.ivector.IvectorExtractor` trained
+    on this config's features; each batch also computes one utterance
+    i-vector per row (masked batched statistics and one K×K solve on
+    ``device``) into the ``ivectors`` dict (``{key: [K] float32}``, the
+    ``ivector-extract`` flow; write it with
+    ``feats_io.write_kaldi_vec_ark``).
+
     ``resample``: accept files at other rates than ``cfg.sample_rate``;
     each such batch is resampled on ``device`` in the decode thread (a
     padded row's valid prefix resamples as the lone file does: the
@@ -224,8 +237,6 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
 
     The decode thread is joined before the generator returns, raises or is
     closed by its consumer."""
-    if ivector is not None or ivectors is not None:
-        _refuse("extract_corpus's ivector=", 11)
     if dp:
         _refuse("extract_corpus's dp=", 13)
     device = features.default_device(device)
@@ -244,6 +255,14 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
             f"{len(bad)} file(s) not at {cfg.sample_rate} Hz (first: "
             f"{bad[0][0]} @ {bad[0][2]}); resample them first, or pass "
             "resample=True / --resample")
+    if ivector is not None:
+        if ivectors is None:
+            raise ValueError("ivector= needs an ivectors= dict to fill")
+        if ivector.ubm.dim != cfg.feature_dim:
+            raise ValueError(
+                f"ivector UBM dim {ivector.ubm.dim} != cfg.feature_dim "
+                f"{cfg.feature_dim} (train the extractor on this "
+                "config's features)")
     plans = _plan_batches(entries, batch_size, bucket_grid)
     pin = device.type == "cuda"
 
@@ -298,6 +317,11 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
             lx = torch.from_numpy(lengths).to(device, non_blocking=True)
             res = features.extract(x, lx, cfg, generator=generator)
             rows = _rows(res, batch_entries)
+            if ivector is not None:
+                ivb = ivmod.utterance_ivector(
+                    ivector, res.features.float(), res.mask).cpu().numpy()
+                for b, (key, _) in enumerate(rows):
+                    ivectors[key] = ivb[b]
             clock["device_s"] += time.perf_counter() - t0
             yield from rows                 # the consumer's time is its own
     finally:
@@ -396,22 +420,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resample", action="store_true",
                    help="accept WAVs at other rates: each batch is "
                         "resampled to the config's rate on the device")
-    for flag, item in (("--dp", 13),
-                       ("--ivector-extractor", 11), ("--ivector-ark", 11),
-                       ("--fmllr-ubm", 11), ("--fmllr-ark", 11)):
-        p.add_argument(flag, default=None, nargs="?", const=True,
-                       help=f"not ported yet: ROADMAP.md queue 1, item "
-                            f"{item}")
+    p.add_argument("--ivector-extractor", metavar="NPZ", default=None,
+                   help="IvectorExtractor.save() file trained on this "
+                        "preset's features: one utterance i-vector per "
+                        "file (ivector-extract)")
+    p.add_argument("--ivector-ark", metavar="ARK", default=None,
+                   help="where to write the i-vectors (Kaldi binary FV "
+                        "vector archive + .scp index); requires "
+                        "--ivector-extractor")
+    p.add_argument("--fmllr-ubm", metavar="NPZ", default=None,
+                   help="DiagUbm.save() file trained on this preset's "
+                        "(post-CMVN) features: accumulate fMLLR statistics "
+                        "and estimate affine transforms (gmm-est-fmllr), "
+                        "one per --utt2spk speaker or a single 'global' "
+                        "entry; requires --fmllr-ark")
+    p.add_argument("--fmllr-ark", metavar="ARK", default=None,
+                   help="where to write the [D, D+1] fMLLR transforms "
+                        "(Kaldi binary FM matrix archive + .scp index), "
+                        "keyed by speaker")
+    p.add_argument("--fmllr-min-count", type=float, default=500.0,
+                   help="frames below which a speaker keeps the identity "
+                        "transform (Kaldi --fmllr-min-count)")
+    p.add_argument("--dp", default=None, nargs="?", const=True,
+                   help="not ported yet: ROADMAP.md queue 1, item 13")
     return p
+
+
+def _estimate_fmllr(ubm: ivmod.DiagUbm, rows: list, batch: int,
+                    min_count: float, device) -> dict:
+    """Per-speaker fMLLR transforms from ``rows`` [(speaker, [F, D]
+    features)]: per-row statistics in padded batches of at most ``batch``
+    rows, bucketed on a frame-domain length grid, summed per speaker in
+    float64, then estimated -> {speaker: [D, D+1] float32}."""
+    acc: dict = {}
+    by_bucket: dict = {}
+    for spk, feats in rows:
+        nb = data.bucket_length(max(feats.shape[0], 1), minimum=128)
+        by_bucket.setdefault(nb, []).append((spk, feats))
+    step = max(batch, 1)
+    for nb, group in by_bucket.items():
+        for j in range(0, len(group), step):
+            part = group[j: j + step]
+            pad = np.zeros((len(part), nb, ubm.dim), np.float32)
+            nf = np.zeros(len(part), np.int32)
+            for i, (_, f) in enumerate(part):
+                pad[i, : f.shape[0]] = f
+                nf[i] = f.shape[0]
+            bs, Ks, Gs = fmllr.fmllr_stats(ubm, pad, nf, per_row=True,
+                                           device=device)
+            for i, (spk, _) in enumerate(part):
+                a = acc.get(spk)
+                if a is None:
+                    acc[spk] = [bs[i], Ks[i], Gs[i]]
+                else:
+                    a[0] += bs[i]
+                    a[1] += Ks[i]
+                    a[2] += Gs[i]
+    return {s: fmllr.estimate_fmllr(b, K, G, min_count=min_count
+                                    ).astype(np.float32)
+            for s, (b, K, G) in sorted(acc.items())}
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in (("dp", 13), ("ivector_extractor", 11),
-                       ("ivector_ark", 11), ("fmllr_ubm", 11),
-                       ("fmllr_ark", 11)):
-        if getattr(args, flag) is not None:
-            _refuse(f"--{flag.replace('_', '-')}", item)
+    if args.dp is not None:
+        _refuse("--dp", 13)
     cfg = cli.parse_overrides(PRESETS[args.preset], args.set)
     if args.fused:
         cfg = dataclasses.replace(cfg, use_pallas=True, gemm_dft=True,
@@ -432,21 +505,42 @@ def main(argv=None) -> int:
                 feats_io.read_kaldi_ark(args.apply_cmvn).items()}
         else:
             apply_stats = data.CmvnStats.load(args.apply_cmvn)
+    fmllr_ubm = None
+    if args.fmllr_ubm:
+        if not args.fmllr_ark:
+            raise ValueError("--fmllr-ubm requires --fmllr-ark (where the "
+                             "estimated transforms go)")
+        fmllr_ubm = ivmod.DiagUbm.load(args.fmllr_ubm)
+        if fmllr_ubm.dim != cfg.feature_dim:
+            raise ValueError(
+                f"fMLLR UBM dim {fmllr_ubm.dim} != feature dim "
+                f"{cfg.feature_dim} (train the UBM on this preset's "
+                "features)")
+    elif args.fmllr_ark:
+        raise ValueError("--fmllr-ark requires --fmllr-ubm")
+    extractor = None
+    if args.ivector_extractor:
+        extractor = ivmod.IvectorExtractor.load(args.ivector_extractor)
+    elif args.ivector_ark:
+        raise ValueError("--ivector-ark requires --ivector-extractor")
     apply_fmllr = feats_io.read_kaldi_ark(args.apply_fmllr) \
         if args.apply_fmllr else None
     passes = []
     out: dict = {}
     stats: dict = {}
     cmvn_acc = None
+    ivecs: dict = {}
+    fmllr_rows: list = []
     for _ in range(max(1, args.repeat)):
         t0 = time.perf_counter()
-        out, stats = {}, {}
+        out, stats, ivecs, fmllr_rows = {}, {}, {}, []
         cmvn_acc = (({} if utt2spk else data.CmvnStats(cfg.feature_dim))
                     if args.global_cmvn else None)
         for key, feats in extract_corpus(
                 args.wav_dir, cfg, args.batch, stats=stats,
                 segments=args.segments, bucket_grid=args.bucket_grid,
-                resample=args.resample, device=device):
+                resample=args.resample, ivector=extractor,
+                ivectors=ivecs if extractor else None, device=device):
             # segments mode yields utterance ids; whole-file mode paths
             rel = key if args.segments \
                 else os.path.relpath(key, args.wav_dir)
@@ -469,6 +563,9 @@ def main(argv=None) -> int:
                         f"{args.apply_fmllr}: no fMLLR transform for "
                         f"speaker {spk or 'global'!r} (utterance {rel!r})")
                 feats = data.apply_transform(feats, W).numpy()
+            if fmllr_ubm is not None:
+                fmllr_rows.append((spk if spk is not None else "global",
+                                   feats))
             out[rel] = feats
         passes.append(time.perf_counter() - t0)
     if cmvn_acc is not None:
@@ -479,6 +576,12 @@ def main(argv=None) -> int:
                 dtype="f64")
         else:
             cmvn_acc.save(args.global_cmvn)
+    if fmllr_ubm is not None:
+        feats_io.write_kaldi_ark(
+            args.fmllr_ark,
+            _estimate_fmllr(fmllr_ubm, fmllr_rows, args.batch,
+                            args.fmllr_min_count, device),
+            scp_path=os.path.splitext(args.fmllr_ark)[0] + ".scp")
     dt = passes[-1]
     if args.out_npz.lower().endswith(".ark"):
         keys = feats_io.ark_keys(list(out))
@@ -487,6 +590,14 @@ def main(argv=None) -> int:
             scp_path=os.path.splitext(args.out_npz)[0] + ".scp")
     else:
         np.savez(args.out_npz, **out)
+    if extractor is not None and args.ivector_ark:
+        # the feature archive's sanitized key scheme
+        rels = [k if args.segments else os.path.relpath(k, args.wav_dir)
+                for k in ivecs]
+        feats_io.write_kaldi_vec_ark(
+            args.ivector_ark, dict(zip(feats_io.ark_keys(rels),
+                                       ivecs.values())),
+            scp_path=os.path.splitext(args.ivector_ark)[0] + ".scp")
     audio_s = sum(f.shape[0] for f in out.values()) * cfg.hop_length \
         / cfg.sample_rate
     print(json.dumps({"files": len(out), "audio_s": round(audio_s, 1),

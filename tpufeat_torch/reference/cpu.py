@@ -5,8 +5,8 @@ The numerical oracle against which the accelerated path is validated with
 max-abs-error, usable where jax is not installed (``chip_smoke.py`` on the
 GPU host). Everything is float64, stage-by-stage, written for auditability
 rather than speed. The pitch tracker's and the beamformer's goldens are
-here too; those of the speaker stack and the models arrive with their
-slices.
+here too, and those of the speaker stack (i-vectors, PLDA, fMLLR); those
+of the models arrive with their slice.
 
 The radix-2 FFT here mirrors the reference's centerpiece OpenCL kernel
 (SURVEY.md §2 C5: iterative Cooley-Tukey, bit-reversal + log2(N) butterfly
@@ -36,6 +36,14 @@ __all__ = [
     "cmvn",
     "frame_energy",
     "extract",
+    "diag_gmm_log_likes",
+    "gmm_posteriors",
+    "ivector_stats",
+    "ivector_estimate",
+    "ivector_features",
+    "plda_transform_ivector",
+    "plda_log_likelihood_ratio",
+    "fmllr_stats",
 ]
 
 
@@ -599,3 +607,163 @@ def delay_and_sum(x: np.ndarray, max_delay: int = 64, ref: int = 0,
     y = np.fft.irfft(X * np.exp(2j * np.pi * k[None, :] * d[:, None] / p),
                      n=p, axis=-1)[:, :N]
     return y.mean(axis=0)
+
+
+# --- i-vectors (goldens for tpufeat_torch.ivector) ---
+
+def diag_gmm_log_likes(x: np.ndarray, weights: np.ndarray,
+                       means: np.ndarray, vars_: np.ndarray) -> np.ndarray:
+    """Float64 golden for :meth:`tpufeat_torch.ivector.DiagUbm.log_likes`:
+    direct per-gaussian evaluation, no GEMM re-association."""
+    x = np.asarray(x, np.float64)
+    w = np.asarray(weights, np.float64)
+    mu = np.asarray(means, np.float64)
+    var = np.asarray(vars_, np.float64)
+    d = x[:, None, :] - mu[None, :, :]                  # [T, G, D]
+    return (np.log(w)[None, :]
+            - 0.5 * np.log(2.0 * np.pi * var).sum(axis=1)[None, :]
+            - 0.5 * (d * d / var[None]).sum(axis=2))
+
+
+def gmm_posteriors(x: np.ndarray, weights, means, vars_,
+                   min_post: float = 0.0) -> np.ndarray:
+    """Softmax responsibilities with Kaldi-style min_post pruning."""
+    ll = diag_gmm_log_likes(x, weights, means, vars_)
+    ll -= ll.max(axis=1, keepdims=True)
+    post = np.exp(ll)
+    post /= post.sum(axis=1, keepdims=True)
+    if min_post > 0.0:
+        post[post < min_post] = 0.0
+        post /= np.maximum(post.sum(axis=1, keepdims=True), 1e-20)
+    return post
+
+
+def ivector_stats(x: np.ndarray, weights, means, vars_, *,
+                  posterior_scale: float = 1.0,
+                  min_post: float = 0.0):
+    """(N [G], centered F [G, D]) Baum-Welch stats — golden for
+    :meth:`tpufeat_torch.ivector.IvectorExtractor.stats`."""
+    post = gmm_posteriors(x, weights, means, vars_,
+                          min_post) * posterior_scale
+    n = post.sum(axis=0)
+    f = post.T @ np.asarray(x, np.float64) \
+        - n[:, None] * np.asarray(means, np.float64)
+    return n, f
+
+
+def ivector_estimate(n: np.ndarray, f: np.ndarray, M: np.ndarray,
+                     vars_: np.ndarray, max_count: float = 0.0
+                     ) -> np.ndarray:
+    """Posterior-mean i-vector from (N, F) stats — golden for
+    :meth:`tpufeat_torch.ivector.IvectorExtractor.estimate`."""
+    M = np.asarray(M, np.float64)
+    inv = 1.0 / np.asarray(vars_, np.float64)           # [G, D]
+    n = np.asarray(n, np.float64)
+    f = np.asarray(f, np.float64)
+    if max_count > 0.0:
+        factor = min(1.0, max_count / max(n.sum(), 1e-20))
+        n, f = n * factor, f * factor
+    P = inv[:, :, None] * M                             # Σ⁻¹M [G, D, K]
+    K = M.shape[2]
+    L = np.eye(K) + np.einsum("g,gdk,gdl->kl", n, M, P)
+    b = np.einsum("gd,gdk->k", f, P)
+    return np.linalg.solve(L, b)
+
+
+def ivector_features(x: np.ndarray, weights, means, vars_, M, *,
+                     period: int = 10, posterior_scale: float = 0.1,
+                     max_count: float = 0.0,
+                     min_post: float = 0.0) -> np.ndarray:
+    """Per-frame online i-vectors — float64 golden for
+    :func:`tpufeat_torch.ivector.ivector_features` (direct loop over boundary
+    grid: frame t carries the estimate from frames [0, (t//period)*
+    period))."""
+    x = np.asarray(x, np.float64)
+    T = x.shape[0]
+    K = np.asarray(M).shape[2]
+    out = np.zeros((T, K))
+    post = gmm_posteriors(x, weights, means, vars_,
+                          min_post) * posterior_scale
+    mu = np.asarray(means, np.float64)
+    for m in range(-(-T // period)):
+        lo, hi = m * period, min((m + 1) * period, T)
+        p = post[:lo]
+        n = p.sum(axis=0)
+        f = p.T @ x[:lo] - n[:, None] * mu
+        out[lo:hi] = ivector_estimate(n, f, M, vars_, max_count)
+    return out
+
+
+# --- PLDA (goldens for tpufeat_torch.plda) ---
+
+def plda_transform_ivector(mean, transform, psi, x, n_examples=1,
+                           normalize_length: bool = True) -> np.ndarray:
+    """Float64 golden for :meth:`tpufeat_torch.plda.Plda.transform_ivector`:
+    y = A(x - mean), optionally scaled so sum(y^2/(psi + 1/n)) == dim
+    (Kaldi GetNormalizationFactor: a mean of n utterances has
+    within-class variance 1/n)."""
+    mean = np.asarray(mean, np.float64)
+    a = np.asarray(transform, np.float64)
+    psi = np.asarray(psi, np.float64)
+    y = (np.asarray(x, np.float64) - mean) @ a.T
+    if normalize_length:
+        n = np.broadcast_to(np.asarray(n_examples, np.float64),
+                            y.shape[:-1])
+        sq = (y * y / (psi[None, :] + 1.0 / n[..., None])).sum(
+            axis=-1, keepdims=True)
+        y = y * np.sqrt(mean.size / np.where(sq > 0, sq, 1.0))
+    return y
+
+
+def plda_log_likelihood_ratio(mean, transform, psi, enroll, n_enroll,
+                              test,
+                              normalize_length: bool = True) -> np.ndarray:
+    """Float64 golden for :meth:`tpufeat_torch.plda.Plda.score`: naive
+    per-pair Kaldi LogLikelihoodRatio loop over [E, K] x [T, K] raw
+    i-vectors -> [E, T]."""
+    psi = np.asarray(psi, np.float64)
+    n = np.broadcast_to(np.asarray(n_enroll, np.float64),
+                        (np.shape(enroll)[0],))
+    u = plda_transform_ivector(mean, transform, psi, enroll, n,
+                               normalize_length=normalize_length)
+    v = plda_transform_ivector(mean, transform, psi, test,
+                               normalize_length=normalize_length)
+    out = np.empty((u.shape[0], v.shape[0]))
+    vn = 1.0 + psi
+    for e in range(u.shape[0]):
+        npsi = n[e] * psi
+        m = npsi / (npsi + 1.0) * u[e]
+        vg = 1.0 + psi / (npsi + 1.0)
+        for t in range(v.shape[0]):
+            given = -0.5 * (np.log(2.0 * np.pi * vg)
+                            + (v[t] - m) ** 2 / vg).sum()
+            without = -0.5 * (np.log(2.0 * np.pi * vn)
+                              + v[t] ** 2 / vn).sum()
+            out[e, t] = given - without
+    return out
+
+
+# --- fMLLR (goldens for tpufeat_torch.fmllr) ---
+
+def fmllr_stats(x: np.ndarray, weights, means, vars_,
+                min_post: float = 0.0):
+    """Float64 golden for :func:`tpufeat_torch.fmllr.fmllr_stats`: naive
+    frame x gaussian loop. [T, D] -> (beta, K [D, D+1],
+    G [D, D+1, D+1])."""
+    x = np.asarray(x, np.float64)
+    means = np.asarray(means, np.float64)
+    vars_ = np.asarray(vars_, np.float64)
+    post = gmm_posteriors(x, weights, means, vars_, min_post)
+    T, D = x.shape
+    beta = post.sum()
+    K = np.zeros((D, D + 1))
+    G = np.zeros((D, D + 1, D + 1))
+    for t in range(T):
+        xe = np.append(x[t], 1.0)
+        outer = np.outer(xe, xe)
+        for g in range(means.shape[0]):
+            if post[t, g] == 0.0:
+                continue
+            K += post[t, g] * (means[g] / vars_[g])[:, None] * xe[None, :]
+            G += (post[t, g] / vars_[g])[:, None, None] * outer[None]
+    return float(beta), K, G

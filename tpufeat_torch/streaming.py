@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from tpufeat_torch import features, framing, plp, resampling
+from tpufeat_torch import ivector as ivmod
 from tpufeat_torch import pitch as pitchmod
 from tpufeat_torch.config import KALDI39, MFCC13_HTK, FeatureConfig
 from tpufeat_torch.kernels import signal as signal_kernel
@@ -956,8 +957,17 @@ class StreamingPipeline:
     the bits of the offline ``resampling.resample`` of the stream, and
     :meth:`flush` drains the resampler first.
 
-    Not ported yet: ``ivector=`` (ROADMAP.md queue 1, item 11) raises
-    ``NotImplementedError``.
+    ``ivector=`` an :class:`ivector.IvectorExtractor` trained on the base
+    features (13-dim for KALDI39, before CMVN) appends Kaldi online2's
+    per-frame i-vectors as the last K columns, after pitch: a
+    :class:`ivector.StreamingIvector` (``ivector_period``,
+    ``ivector_scale``, ``ivector_max_count``) estimates them from the
+    base rows, 1:1, and a FIFO aligns them with the delta lag and the
+    pitch lookahead; the flush truncates them with the spectral and pitch
+    rows. A recycled slot's i-vector restarts at the prior on its own
+    boundary grid. The flush raises if a step met a precision matrix that
+    is not positive definite. KALDI39 with pitch and a K=100 extractor
+    gives Kaldi nnet3-online's 142-dim rows.
 
     The state is tensors and host ints: :meth:`state` / :meth:`set_state`
     go through :func:`save_state` / :func:`load_state`. Tensors live on
@@ -968,12 +978,10 @@ class StreamingPipeline:
                  pitch=False, pitch_lookahead: int = 15,
                  input_rate: int | None = None,
                  online_cmvn: OnlineCmvn | None = None, transform=None,
-                 ivector=None, device=None):
+                 ivector=None, ivector_period: int = 10,
+                 ivector_scale: float = 0.1, ivector_max_count: float = 0.0,
+                 device=None):
         cfg = KALDI39 if cfg is None else cfg
-        if ivector is not None:
-            raise NotImplementedError(
-                "StreamingPipeline's ivector= is not ported to tpufeat_torch "
-                "yet: ROADMAP.md queue 1, item 11")
         if not cfg.deltas:
             raise ValueError("StreamingPipeline is the deltas+CMVN "
                              "composition; use StreamingFrontend for "
@@ -1045,6 +1053,23 @@ class StreamingPipeline:
                                           device=self.device)
             self._pfeat_fifo = torch.zeros(batch_size, 0, 3,
                                            device=self.device)
+        self._ivector = None
+        self._iv_args = (ivector_period, ivector_scale, ivector_max_count)
+        if ivector is not None:
+            if not isinstance(ivector, ivmod.IvectorExtractor):
+                raise TypeError("ivector= wants an IvectorExtractor, got "
+                                f"{type(ivector).__name__}")
+            if ivector.ubm.dim != dim:
+                raise ValueError(
+                    f"ivector UBM dim {ivector.ubm.dim} != base feature "
+                    f"dim {dim} (the extractor must be trained on the "
+                    "pipeline's base features)")
+            self._ivector = ivmod.StreamingIvector(
+                ivector, batch_size, period=ivector_period,
+                posterior_scale=ivector_scale, max_count=ivector_max_count,
+                device=self.device)
+            self._iv_fifo = torch.zeros(batch_size, 0, ivector.ivector_dim,
+                                        device=self.device)
 
     def _spectral_dim(self) -> int:
         return self._transform.shape[0] if self._transform is not None \
@@ -1053,8 +1078,10 @@ class StreamingPipeline:
     @property
     def out_dim(self) -> int:
         """The emitted rows' width: cfg.feature_dim, or the transform's
-        output rows; 3 more with pitch."""
-        return self._spectral_dim() + (3 if self._pitch is not None else 0)
+        output rows; 3 more with pitch, K more with i-vectors."""
+        return (self._spectral_dim()
+                + (3 if self._pitch is not None else 0)
+                + (self._ivector.dim if self._ivector is not None else 0))
 
     def _emit(self, last_rows: torch.Tensor) -> torch.Tensor:
         """Pop n = last_rows rows off every FIFO and assemble the
@@ -1118,6 +1145,9 @@ class StreamingPipeline:
         base, _ = self.frontend.process(chunk)
         rows = base
         self._fifos[0] = torch.cat([self._fifos[0], base], dim=1)
+        if self._ivector is not None and base.shape[1]:
+            self._iv_fifo = torch.cat(
+                [self._iv_fifo, self._ivector.process(base)], dim=1)
         for i, stage in enumerate(self.stages):
             rows = stage.process(rows)
             if i + 1 < len(self.stages):
@@ -1126,7 +1156,16 @@ class StreamingPipeline:
         out = self._emit(rows)
         if self._pitch is not None:
             out = self._join(out, self._pitch.process(chunk))
-        return out
+        return self._append_ivector(out)
+
+    def _append_ivector(self, out: torch.Tensor) -> torch.Tensor:
+        """Pop as many queued i-vector rows as the main block emitted and
+        append them as the last columns."""
+        if self._ivector is None:
+            return out
+        n = out.shape[1]
+        iv, self._iv_fifo = self._iv_fifo[:, :n], self._iv_fifo[:, n:]
+        return torch.cat([out, iv], dim=-1)
 
     def flush(self) -> torch.Tensor:
         """End of stream: drain the resampler's filter tail, then the delta
@@ -1160,19 +1199,31 @@ class StreamingPipeline:
             # the pitch window is longer than the spectral frame, so the
             # tracker decides fewer frames: the spectral tail is dropped
             self._main_fifo = self._main_fifo[:, :0]
+        out = self._append_ivector(out)
+        if self._ivector is not None:
+            if self._pitch is None and self._iv_fifo.shape[1]:
+                raise RuntimeError("i-vector rows left after flush")
+            # with pitch, the dropped spectral tail's i-vector rows go too
+            self._iv_fifo = self._iv_fifo[:, :0]
+            self._ivector.check()
         return out if pre is None else torch.cat([pre, out], dim=1)
 
     def reset(self) -> None:
         """A fresh stream in every row; ``online_cmvn``'s priors, the
-        transform, the pitch options and the input rate stay."""
+        transform, the pitch options, the i-vector extractor and the input
+        rate stay."""
         if self._ocmvn is not None:
             self._ocmvn.reset()
+        iv_period, iv_scale, iv_max_count = self._iv_args
         self.__init__(self.cfg, self._fifos[0].shape[0],
                       pitch=self._pitch_cfg or False,
                       pitch_lookahead=self._pitch_lookahead,
                       input_rate=self._input_rate,
                       online_cmvn=self._ocmvn, transform=self._transform,
-                      device=self.device)
+                      ivector=(self._ivector.extractor
+                               if self._ivector is not None else None),
+                      ivector_period=iv_period, ivector_scale=iv_scale,
+                      ivector_max_count=iv_max_count, device=self.device)
 
     @property
     def warmup_rows(self) -> int:
@@ -1186,7 +1237,8 @@ class StreamingPipeline:
         frames then shows rows that are not yet exact). Pitch adds the
         Viterbi restart and its delta chain, counted twice like the deltas:
         2 * (pitch_lookahead + 2 * delta_window). A zeroed resampler carry
-        is the zeros-prefix history, and adds nothing."""
+        is the zeros-prefix history, and adds nothing; so do i-vectors, whose
+        queued rows are zeroed and whose estimate restarts at the prior."""
         w = 2 * self.cfg.delta_order * self.cfg.delta_window
         if self._scmvn is not None:
             w += self._scmvn.window + self._scmvn._pending.shape[1]
@@ -1204,8 +1256,10 @@ class StreamingPipeline:
         silence, the delta carries and queued FIFO rows are zeroed
         (:attr:`warmup_rows`), running and sliding CMVN statistics restart,
         :class:`OnlineCmvn` restarts the rows against its priors, the
-        resampler's carry is zeroed, and the pitch tracker restarts from
-        its initial condition (its queued rows zeroed).
+        resampler's carry is zeroed, the pitch tracker restarts from its
+        initial condition (its queued rows zeroed), and the i-vector
+        estimate restarts at the prior on the slot's own boundary grid
+        (its queued rows zeroed).
 
         The rows are zeroed at the next :meth:`process`, :meth:`flush` or
         :meth:`state`, all rows reset since in one pass over each state
@@ -1239,6 +1293,10 @@ class StreamingPipeline:
                 self._main_fifo = zero_rows(self._main_fifo, rows)
             if self._pfeat_fifo.shape[1]:
                 self._pfeat_fifo = zero_rows(self._pfeat_fifo, rows)
+        if self._ivector is not None:
+            self._ivector.reset_rows(rows)
+            if self._iv_fifo.shape[1]:
+                self._iv_fifo = zero_rows(self._iv_fifo, rows)
 
     def state(self) -> dict:
         """The whole pipeline state, host counters included, for
@@ -1258,6 +1316,9 @@ class StreamingPipeline:
             s["pitch"] = self._pitch.state()
             s["main_fifo"] = self._main_fifo
             s["pfeat_fifo"] = self._pfeat_fifo
+        if self._ivector is not None:
+            s["ivector"] = self._ivector.state()
+            s["iv_fifo"] = self._iv_fifo
         return s
 
     def set_state(self, s: dict) -> None:
@@ -1273,7 +1334,8 @@ class StreamingPipeline:
                 f"{'has' if 'resampler' in s else 'lacks'} resampler "
                 f"state, pipeline input_rate={self._input_rate}")
         for key, have in (("scmvn", self._scmvn), ("ocmvn", self._ocmvn),
-                          ("pitch", self._pitch)):
+                          ("pitch", self._pitch),
+                          ("ivector", self._ivector)):
             if (key in s) != (have is not None):
                 raise ValueError(f"checkpoint and pipeline disagree on "
                                  f"{key} state")
@@ -1293,6 +1355,9 @@ class StreamingPipeline:
             self._pitch.set_state(s["pitch"])
             self._main_fifo = s["main_fifo"]
             self._pfeat_fifo = s["pfeat_fifo"]
+        if self._ivector is not None:
+            self._ivector.set_state(s["ivector"])
+            self._iv_fifo = s["iv_fifo"]
 
 
 class PoolRows(Mapping):
