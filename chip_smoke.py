@@ -44,9 +44,10 @@ recycled every tick, timed beside the bare step and profiled, its
 recycled and untouched slots bit for bit against a zeros-prefix oracle;
 the corpus pipeline (:func:`corpus_phase`): ``python -m
 tpufeat_torch.pipeline`` over 256 WAVs to an ark, every utterance against
-``extract`` of it alone, and ``extract_corpus`` with its upload and fetch
-knobs on and off; 48 kHz capture with Kaldi pitch
-(:func:`rate_pitch_phase`): ``StreamingPipeline(input_rate=48000,
+``extract`` of it alone, and ``extract_corpus`` with the native C++
+decoder (its arks bit for bit those of the Python decoder) and the Python
+one, and with its upload and fetch knobs on and off; 48 kHz capture with
+Kaldi pitch (:func:`rate_pitch_phase`): ``StreamingPipeline(input_rate=48000,
 pitch=True)`` on the 4096 streams, bit for bit against the same pipeline
 fed the offline resample, its pitch columns against the CPU run, its step
 timed and profiled; offline ``resample``, ``extract`` and
@@ -58,8 +59,15 @@ i-vectors), trained on the card from the kaldi39 batch:
 rows, their spectral and pitch columns bit for bit against the pipeline
 without i-vectors, their i-vector columns against ``ivector_features``)
 and a pool over it, offline i-vectors and fMLLR against the CPU and the
-float64 golden, and diarization of 30 min and 3 h drawn from the
-extractor's model against the truth and the CPU; and the phase-kernel
+float64 golden, diarization of 30 min and 3 h drawn from the
+extractor's model against the truth and the CPU, and ``diarize_long`` on
+the reference's own long-form world (``diarize_long_bench.py``'s
+generator at G=512, K=100) against the truth and, on 30 min of it, the
+CPU's labels; the ASR models (:func:`models_phase`): ``asr_forward`` of
+the main path's batch through whisper-tiny on ``WHISPER80`` and
+conformer-small on ``KALDI39`` (K1 on the path, the front-end's share,
+two rows against the CPU) and a few CTC, RNN-T and x-vector training
+steps with falling losses; and the phase-kernel
 anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
@@ -69,7 +77,8 @@ bits, then every precision's pass count at the scripts' shape (the
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Any failure exits non-zero; nothing is caught. Needs one
-CUDA card and nvcc; imports nothing of jax or tpufeat. The line before the
+CUDA card, nvcc and g++; imports nothing of jax or tpufeat. The line
+before the
 last is the kernels' JSON summary (time, bound, launches, plain and library
 times); the last line of stdout is one JSON object:
 {"ok": true, "device": {...}}.
@@ -110,6 +119,11 @@ TOL_ROUTE = 1e-4    # one-shot staged routes vs the fused route at
 TOL_STREAM = 1e-5   # streaming vs its one-shot counterpart, same scaling
 TOL_IVECTOR = 1e-4  # online i-vector columns vs ivector_features of the
 #                     same base rows (tests/test_torch_ivector.py's)
+TRAIN_LR = 3e-4     # the models phase's AdamW learning rate
+TOL_MODEL = 1e-3    # asr_forward's logits on the card vs the same model
+#                     on the CPU (K1's twin), scaled by max(1, |CPU|.max()):
+#                     the front-end's 1e-3 fidelity budget, through the
+#                     encoder
 REPS = 11           # timed runs per path (median)
 LAUNCHES = 10       # calls per timed run of a kernel or a twin alone: its
 #                     time is their mean, so the host's time between two
@@ -1112,6 +1126,64 @@ def speaker_frames(ext, voices: np.ndarray, truth: np.ndarray,
             * rng.standard_normal((truth.size, D))).astype(np.float32)
 
 
+def generator_world(ivector, plda, device: str, num_gauss: int,
+                    ivector_dim: int, speakers: int = 24):
+    """``benchmarks/experiments/diarize_long_bench.py``'s world (copied: this
+    script imports nothing of the JAX package): 32 acoustic states shared
+    by every speaker in a 13-dim space plus a small per-speaker shift of
+    every state, a UBM, extractor and PLDA trained as the generator trains
+    them (``speakers`` x 4000 frames; 40 utterances of 150 frames a
+    speaker; EM on ``device``). Returns (extractor, PLDA, draw, the
+    separation line: same- and different-speaker score medians over the
+    training i-vectors and the share of different-speaker scores above
+    the same-speaker median)."""
+    D, P = 13, 32
+    r = np.random.default_rng(0)
+    phones = r.standard_normal((P, D)) * 4.0      # shared acoustic states
+    offs = r.standard_normal((speakers, D)) * 1.0  # per-speaker shift
+
+    def draw(spk, n, s):
+        rr = np.random.default_rng(s)
+        z = rr.integers(0, P, n)
+        return (phones[z] + offs[spk]
+                + 0.8 * rr.standard_normal((n, D))).astype(np.float32)
+
+    frames = np.concatenate([draw(s, 4000, 100 + s)
+                             for s in range(speakers)])
+    ubm = ivector.train_diag_ubm(frames, num_gauss, iters=2, final_iters=3,
+                                 seed=0, device=device)
+    utts = np.stack([draw(s, 150, 200 + 10 * s + u)
+                     for s in range(speakers) for u in range(40)])
+    ids = np.repeat(np.arange(speakers), 40)
+    ext = ivector.train_ivector_extractor(ubm, utts, ivector_dim=ivector_dim,
+                                          iters=3, seed=1, device=device)
+    ivs = ivector.utterance_ivector(ext, utts, device=device)
+    ivs = ivs.double().cpu().numpy()
+    model = plda.train_plda(ivs, ids, iters=5)
+    S = model.score_host(ivs, ivs)
+    same = S[ids[:, None] == ids[None, :]]
+    diff = S[ids[:, None] != ids[None, :]]
+    sep = (f"same-speaker median {np.median(same):.1f}, different "
+           f"{np.median(diff):.1f}, overlap "
+           f"{(diff > np.median(same)).mean():.4f}")
+    return ext, model, draw, sep
+
+
+def generator_recording(draw, frames: int, speakers: int = 6,
+                        seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """The generator's recording: turns of 300-1500 frames (3-15 s), each by
+    one of the first ``speakers`` speakers -> (feats [T, 13], truth [T])."""
+    rr = np.random.default_rng(seed)
+    parts, truth, t, i = [], [], 0, 0
+    while t < frames:
+        s = int(rr.integers(0, speakers))
+        n = min(int(rr.integers(300, 1500)), frames - t)
+        parts.append(draw(s, n, 5000 + i))
+        truth.append(np.full(n, s))
+        t, i = t + n, i + 1
+    return np.concatenate(parts), np.concatenate(truth)
+
+
 def speaker_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
                   device: str = "cuda", streams: int = STREAMS,
                   steps: int = 30, num_gauss: int = 512,
@@ -1120,7 +1192,10 @@ def speaker_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
                   reps: int = STEP_REPS, offline_reps: int = 3,
                   cpu_rows: int = 4, golden_frames: int = 300,
                   world_minutes: float = 30, long_hours: float = 3,
-                  plda_speakers: int = 24, diar_chunk: int = 1000) -> None:
+                  plda_speakers: int = 24, diar_chunk: int = 1000,
+                  generator_hours: float = 3,
+                  generator_slice_minutes: float = 30,
+                  generator_block: int = 512) -> None:
     """The speaker stack at Kaldi's width (``run_ivector_common.sh``: a
     ``num_gauss`` UBM, ``ivector_dim`` i-vectors, period 10, posterior
     scale 0.1), trained on the card from the kaldi39 batch ``sig``:
@@ -1149,7 +1224,13 @@ def speaker_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
     (against the CPU), ``plda_affinity`` on the device and on the host, ``diarize`` (labels against the CPU's)
     and ``StreamingDiarizer`` fed ``diar_chunk``-frame chunks, each timed
     with its frame agreement against the truth, and ``diarize_long`` over
-    ``long_hours`` hours (0 leaves it out)."""
+    ``long_hours`` hours (0 leaves it out). Then ``diarize_long`` on the
+    reference's own long-form world (:func:`generator_world`, trained on
+    the card at ``num_gauss`` / ``ivector_dim``): ``generator_hours`` of its
+    6-speaker recording on the card, timed, with its frame agreement, and
+    its first ``generator_slice_minutes`` (at least 4 blocks of
+    ``generator_block`` windows) on the card and on the CPU, whose labels
+    must agree on 0.99 of the frames (ROADMAP queue 3, item 2)."""
     import time
 
     from tpufeat_torch import KALDI39, StreamingPipeline, extract
@@ -1467,16 +1548,53 @@ def speaker_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
               f"{long_s:.2f} s (RTFx {T3 / 100 / long_s:.0f}), frame "
               f"agreement {agreement(labels, truth):.4f} [{card}]")
         del xw
+    if generator_hours:
+        (gext, gmodel, draw, sep), world_s = clock(lambda: generator_world(
+            ivector, plda, device, num_gauss, K))
+        feats, truth = generator_recording(draw,
+                                           int(generator_hours * 360000))
+        xw = torch.from_numpy(feats).to(device)
+        (labels, _), long_s = clock(lambda: diarization.diarize_long(
+            gext, gmodel, xw, num_speakers=6, block=generator_block))
+        T4 = int(generator_slice_minutes * 6000)
+        n_blocks = -(-len(diarization.sliding_windows(T4))
+                     // generator_block)
+        check(n_blocks >= diarization.MIN_BLOCKS, f"speaker generator slice "
+              f"forms {n_blocks} blocks")
+        (card_slice, _), _ = clock(lambda: diarization.diarize_long(
+            gext, gmodel, xw[:T4], num_speakers=6, block=generator_block))
+        cpu_slice, _ = diarization.diarize_long(
+            gext, gmodel, feats[:T4], num_speakers=6, block=generator_block,
+            device="cpu")
+        same = float((card_slice == cpu_slice).mean())
+        print(f"speaker diarize_long on the reference's world "
+              f"(diarize_long_bench.py: 6 of 24 speakers, 3-15 s turns; "
+              f"G={num_gauss}, K={K}, trained on the card in {world_s:.1f} "
+              f"s; PLDA separation: {sep}): {generator_hours} h "
+              f"({len(truth)} frames) in {long_s:.2f} s (RTFx "
+              f"{len(truth) / 100 / long_s:.0f}), frame agreement "
+              f"{agreement(labels, truth):.4f}; its first "
+              f"{generator_slice_minutes} min ({n_blocks} blocks of "
+              f"{generator_block} windows): agreement on the card "
+              f"{agreement(card_slice, truth[:T4]):.4f}, on the CPU "
+              f"{agreement(cpu_slice, truth[:T4]):.4f}, labels equal to the "
+              f"CPU's on {same:.4f} of frames (limit 0.99) [{card}]")
+        check(same >= 0.99, f"speaker diarize_long on the generator's world "
+              f"vs CPU {same:.4f}")
+        del xw
     print(f"speaker phase: {time.perf_counter() - t_phase:.1f} s in all "
           f"[{card}]")
 
 
-def shipped_pass(wav_dir: str, cfg, batch: int, device: str) -> float:
-    """One pass of ``extract_corpus``; returns its decode seconds."""
+def shipped_pass(wav_dir: str, cfg, batch: int, device: str,
+                 native: bool = True) -> float:
+    """One pass of ``extract_corpus`` decoding with the native C++ decoder
+    (``native=True``: required) or the Python one; returns its decode
+    seconds."""
     from tpufeat_torch import pipeline
     stats = {}
     for _ in pipeline.extract_corpus(wav_dir, cfg, batch, stats=stats,
-                                     device=device):
+                                     native=native, device=device):
         pass
     return stats["decode_s"]
 
@@ -1497,7 +1615,8 @@ def option_pass(plans, cfg, compact: bool, overlap: bool,
     def prep(plan):
         t0 = time.perf_counter()
         entries, width, rows, rate = plan
-        arena, lengths = pipeline._decode_batch(entries, width, rows, rate)
+        arena, lengths = pipeline._decode_batch(entries, width, rows, rate,
+                                                native=True)
         if compact:
             q = np.round(arena * 32768.0)
             q16 = q.astype(np.int16)
@@ -1555,11 +1674,13 @@ def corpus_phase(files: int, reset_counts, read_counts, card: str,
     -m tpufeat_torch.pipeline DIR OUT.ark --preset kaldi39 --fused`` run
     to an ark, read back with ``feats_io`` and every utterance held
     against ``extract`` of that utterance alone; then, in this process,
-    ``extract_corpus`` and the pipeline's loop with the reference's int16
-    upload and overlapped fetch on and off (:func:`option_pass`), two
-    passes of each in turns: RTFx (audio seconds over wall seconds), the
-    decode thread's share of the wall time, and the device's idle share in
-    a profiled pass. Returns the wall seconds of each."""
+    ``extract_corpus`` with the native C++ decoder (its arks bit for bit
+    those of the Python decoder) and with the Python one, and the
+    pipeline's loop with the reference's int16 upload and overlapped fetch
+    on and off (:func:`option_pass`, native decode), two passes of each in
+    turns: RTFx (audio seconds over wall seconds), the decode thread's
+    share of the wall time, and the device's idle share in a profiled
+    pass. Returns the wall seconds of each."""
     import os
     import tempfile
     import time
@@ -1613,13 +1734,46 @@ def corpus_phase(files: int, reset_counts, read_counts, card: str,
         check(worst <= TOL_STREAM, f"corpus vs per-utterance {worst:.3e}")
         del utts
 
-        # the shipped pipeline, then the reference's two options on the same
-        # loop: "int16" uploads an arena as int16 where that is exact,
-        # "overlap" fetches batch k on a side stream after batch k+1 is
-        # dispatched; "f32 serial" is the shipped loop again (the control)
-        plans = pipeline._plan_batches(pipeline._scan_corpus(wav_dir), batch)
+        # the native decode against the Python decode: the same arks
+        native = dict(pipeline.extract_corpus(wav_dir, cfg, batch,
+                                              native=True, device=device))
+        python = dict(pipeline.extract_corpus(wav_dir, cfg, batch,
+                                              native=False, device=device))
+        same = sum(np.array_equal(native[k], python[k]) for k in python)
+        print(f"corpus extract_corpus, native decode vs Python decode: "
+              f"{same} of {len(python)} utterances bit for bit [{card}]")
+        check(sorted(native) == sorted(python) and same == len(python),
+              f"corpus native vs Python decode: {same} of {len(python)}")
+        del native, python
+
+        # where the decode thread's time goes: each batch decoded by the
+        # native decoder and by the Python one, and made page-locked
+        split = {"native": 0.0, "Python": 0.0, "pin_memory": 0.0}
+        for entries, width, rows, rate in pipeline._plan_batches(
+                pipeline._scan_corpus(wav_dir, native=True), batch):
+            for name, native in (("native", True), ("Python", False)):
+                t0 = time.perf_counter()
+                arena, _ = pipeline._decode_batch(entries, width, rows, rate,
+                                                  native=native)
+                split[name] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pipeline._pinned(arena, device != "cpu")
+            split["pin_memory"] += time.perf_counter() - t0
+        print(f"corpus decode, a pass's batches one after another: "
+              f"{', '.join(f'{k} {1e3 * v:.1f} ms' for k, v in split.items())}"
+              f" [{card}]")
+
+        # the shipped pipeline with the native decoder and with the Python
+        # one, then the reference's two options on the same loop: "int16"
+        # uploads an arena as int16 where that is exact, "overlap" fetches
+        # batch k on a side stream after batch k+1 is dispatched; "f32
+        # serial" is the shipped loop again (the control)
+        plans = pipeline._plan_batches(
+            pipeline._scan_corpus(wav_dir, native=True), batch)
         runs = {"shipped": functools.partial(shipped_pass, wav_dir, cfg,
-                                             batch, device)}
+                                             batch, device),
+                "shipped, Python decode": functools.partial(
+                    shipped_pass, wav_dir, cfg, batch, device, False)}
         for compact, overlap in itertools.product((False, True), repeat=2):
             name = (f"{'int16' if compact else 'f32'} "
                     f"{'overlap' if overlap else 'serial'}")
@@ -1651,14 +1805,214 @@ def corpus_phase(files: int, reset_counts, read_counts, card: str,
     return out
 
 
+def kernel_device_ms(fn, part: str) -> tuple[float, float]:
+    """(device ms of the kernels whose name holds ``part``, all device ms)
+    of one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows if part in e.key)
+            / 1e3, sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def models_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
+                 device: str = "cuda", reps: int = REPS, cpu_rows: int = 2,
+                 train_batch: int = 16, steps: int = 5,
+                 xvector_steps: int = 8, widths: dict | None = None) -> None:
+    """The ASR models fed by the front-end (config 5). Serving:
+    ``asr_forward`` over the main path's batch ``sig`` (B x 30 s, full
+    lengths) with ``make_models()`` (whisper-tiny's widths, a 64-token
+    head) on ``WHISPER80`` with the fused flags at bf16x3, then with
+    ``conformer_small``'s widths on ``KALDI39`` rows; each with its K1
+    launch, its median time (CUDA events) beside the front-end's
+    (``extract`` alone) and K1's device time in a profiled forward, its
+    peak memory, ``cpu_rows`` rows against the same model on the CPU (K1's
+    twin) within ``TOL_MODEL``, and the greedy CTC output's lengths.
+    Training, ``steps`` steps each from raw audio (``train_batch`` x 30 s)
+    with AdamW (``TRAIN_LR``), each loss finite and the last below the
+    first, each step timed: ``ctc_train_step`` at whisper-tiny's width
+    (40-label targets), ``transducer_train_step`` at
+    ``make_transducer()``'s (dim 128, 2 Conformer layers, vocab 64,
+    32-label targets), and ``xvector_train_step`` (``xvector_steps``
+    steps) at ``xvector_model(24)``'s (channels 256, embedding 192) on the
+    batch's ``KALDI39`` rows, ragged, each row labelled one of 24 speakers
+    and shifted by that speaker's seeded offset (``tests/test_xvector.py``'s
+    batch), the embeddings' nearest neighbours then counted. ``widths``:
+    per-model overrides of the model functions' widths (a CPU dry run's)."""
+    import copy
+    import time
+
+    from tpufeat_torch import KALDI39, WHISPER80, extract
+    from tpufeat_torch.models import train, xvector
+
+    widths = widths or {}
+    t_phase = time.perf_counter()
+    B, n = sig.shape
+    x = torch.from_numpy(sig).to(device)
+    lx = torch.full((B,), n, dtype=torch.int64, device=device)
+
+    def clocked(fn) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # serving: raw audio -> front-end (K1) -> encoder -> head
+    for arch, base, kw in (
+            ("whisper", WHISPER80, dict(dim=384, layers=4, heads=6)),
+            ("conformer", KALDI39, dict(dim=144, layers=4, heads=4))):
+        cfg = dataclasses.replace(base, **FUSED)
+        torch.manual_seed(0)
+        model = train.make_models(vocab=64, arch=arch,
+                                  in_dim=cfg.feature_dim, device=device,
+                                  **dict(kw, **widths.get(arch, {})))
+
+        def forward(model=model, cfg=cfg):
+            with torch.inference_mode():
+                return train.asr_forward(model, x, lx, cfg)
+
+        def front(cfg=cfg):
+            with torch.inference_mode():
+                return extract(x, lx, cfg)
+
+        reset_counts()
+        logits, mask = forward()
+        torch.cuda.synchronize()
+        read_counts(f"models {arch} asr_forward (B={B})",
+                    {"signal_features_mma": 1})
+        ms, times, peak = time_paths({"asr_forward": forward,
+                                      "front_end": front}, reps)
+        k1_ms, dev_ms = kernel_device_ms(forward, "signal_mma")
+        hyps, decode_ms = clocked(lambda: train.greedy_ctc_decode(logits,
+                                                                  mask))
+        lens = np.array([len(h) for h in hyps])
+        cpu_model = copy.deepcopy(model).to("cpu")
+        with torch.inference_mode():
+            want, wmask = train.asr_forward(cpu_model, sig[:cpu_rows],
+                                            np.full(cpu_rows, n), cfg)
+        got = logits[:cpu_rows].cpu()
+        check(torch.equal(mask[:cpu_rows].cpu(), wmask),
+              f"models {arch} mask vs CPU")
+        _, err = scaled_err(got[wmask], want[wmask])
+        print(f"models serving, {arch} ({kw}, vocab 64) on "
+              f"{cfg.feature_dim}-dim rows: asr_forward of B={B} x "
+              f"{n // SR} s median "
+              f"{ms['asr_forward']:.3f} ms (RTFx "
+              f"{B * n / SR / ms['asr_forward'] * 1e3:.0f}), the front-end "
+              f"(extract alone) {ms['front_end']:.3f} ms = "
+              f"{ms['front_end'] / ms['asr_forward']:.4f} of it; profiled: "
+              f"K1 {k1_ms:.3f} of {dev_ms:.3f} device ms = "
+              f"{k1_ms / dev_ms:.4f}; peak memory "
+              f"{peak['asr_forward'] / 2**30:.2f} GiB; logits "
+              f"{tuple(logits.shape)}; {cpu_rows} rows vs the CPU "
+              f"{err:.3e} scaled (limit {TOL_MODEL}); greedy CTC in "
+              f"{decode_ms:.1f} ms, lengths min {lens.min()} median "
+              f"{np.median(lens):.0f} max {lens.max()} of {mask.sum(1).max()}"
+              f" frames; runs "
+              f"{ {k: ['%.3f' % t for t in v] for k, v in times.items()} } "
+              f"[{card}]", flush=True)
+        check(bool(torch.isfinite(logits).all()), f"models {arch} logits")
+        check(err <= TOL_MODEL, f"models {arch} vs CPU {err:.3e}")
+        del model, cpu_model, logits, mask
+
+    # training from raw audio: CTC, RNN-T; x-vectors on features
+    rng = np.random.default_rng(12)
+    tb = min(train_batch, B)
+    xa, la = x[:tb], lx[:tb]
+
+    def train_steps(name, state, step, count, *args, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(count):
+            (_, loss), t = clocked(lambda: step(state, *args, **kw))
+            losses.append(loss.item())
+            step_ms.append(t)
+        print(f"models training, {name}: losses "
+              f"{['%.4f' % v for v in losses]}, step median "
+              f"{statistics.median(step_ms[1:] or step_ms):.1f} ms (steps "
+              f"{['%.1f' % t for t in step_ms]}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"models {name}: losses {losses}")
+
+    cfg = dataclasses.replace(WHISPER80, **FUSED)
+    torch.manual_seed(1)
+    model = train.make_models(vocab=64, device=device,
+                              **widths.get("whisper", {}))
+    labels = rng.integers(1, 64, (tb, 40))
+    train_steps(f"ctc_train_step, whisper-tiny, B={tb} x {n // SR} s",
+                train.TrainState(model, train.adamw(model, TRAIN_LR)),
+                train.ctc_train_step, steps, xa, la, labels,
+                np.full(tb, 40), cfg=cfg)
+    read_counts("models ctc_train_step", {"signal_features_mma": steps})
+    del model
+
+    torch.manual_seed(2)
+    model = train.make_transducer(device=device,
+                                  **widths.get("transducer", {}))
+    labels = rng.integers(1, 64, (tb, 32))
+    train_steps(f"transducer_train_step, make_transducer(), B={tb} x "
+                f"{n // SR} s, 32 labels",
+                train.TrainState(model, train.adamw(model, TRAIN_LR)),
+                train.transducer_train_step, steps, xa, la, labels,
+                np.full(tb, 32), cfg=cfg)
+    read_counts("models transducer_train_step",
+                {"signal_features_mma": steps})
+    del model
+
+    kcfg = dataclasses.replace(KALDI39, **FUSED)
+    rows = torch.from_numpy(ragged_lengths(n, B)).to(device)
+    reset_counts()
+    res = extract(x, rows, kcfg)
+    torch.cuda.synchronize()
+    read_counts("models x-vector features (KALDI39)",
+                {"signal_features_mma": 1})
+    speaker = torch.arange(B, device=device) % 24
+    offsets = torch.from_numpy(rng.standard_normal((24, 39)).astype(
+        np.float32)).to(device)
+    feats = res.features + offsets[speaker][:, None, :]
+    torch.manual_seed(3)
+    model = xvector.xvector_model(24, in_dim=39, device=device,
+                                  **widths.get("xvector", {}))
+    train_steps(f"xvector_train_step, xvector_model(24), B={B} ragged",
+                xvector.XvectorState(model, train.adamw(model, TRAIN_LR)),
+                xvector.xvector_train_step, xvector_steps,
+                feats, res.mask, speaker)
+    read_counts("models xvector_train_step", {})
+    emb = xvector.extract_xvectors(model, feats, res.num_frames)
+    check(emb.shape == (B, model.embed.out_features)
+          and bool(torch.isfinite(emb).all()), "models x-vectors")
+    d = torch.cdist(emb, emb)
+    d.fill_diagonal_(float("inf"))
+    nearest = float((speaker[d.argmin(dim=1)] == speaker).float().mean())
+    print(f"models x-vectors of the {B} rows: the nearest neighbour is of "
+          f"the same speaker for {nearest:.3f} of them [{card}]")
+    del model, res, emb, x, feats
+    print(f"models phase: {time.perf_counter() - t_phase:.1f} s in all "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
     from tpufeat_torch import FBANK80, WHISPER80, WHISPER128, MFCC13_HTK
+    import time
+
     from tpufeat_torch import FeatureConfig, extract
-    from tpufeat_torch import framing, matrices, spectrum, streaming
+    from tpufeat_torch import cpp_golden, framing, matrices, spectrum
+    from tpufeat_torch import streaming
     from tpufeat_torch.experiments import RUNNERS
     from tpufeat_torch.kernels import _build, anatomy, signal, staged
     from tpufeat_torch.kernels import _tolerance as tolerance
@@ -1719,6 +2073,12 @@ def main() -> int:
     how = "ran" if built.build_seconds else "reused an earlier build"
     print(f"build: {built.path.name} in {built.build_seconds:.2f} s "
           f"(nvcc {how})")
+    # the native C++ decoder and goldens (cpp_ref/mfcc.cc with g++): the
+    # corpus phase decodes with it and fails without it
+    t0 = time.perf_counter()
+    check(cpp_golden.available(), "cpp_ref/mfcc.cc did not build with g++")
+    print(f"build: {cpp_golden.library_path()} in "
+          f"{time.perf_counter() - t0:.2f} s (g++)")
     for line in built.log.splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "Compiling entry" in line or ": nvcc " in line) \
@@ -2389,6 +2749,11 @@ def main() -> int:
     # 9f. the speaker stack: training, the online pipeline with i-vectors
     # (142-dim rows) and its pool, offline i-vectors and fMLLR, diarization
     speaker_phase(sig, reset_counts, read_counts, card)
+
+    # 9g. the ASR models fed by the front-end: serving (whisper-tiny and
+    # conformer-small through asr_forward, K1 on the path) and the CTC,
+    # RNN-T and x-vector training steps
+    models_phase(sig, reset_counts, read_counts, card)
 
     # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its

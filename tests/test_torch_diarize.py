@@ -287,6 +287,76 @@ class TestLongForm:
             dz.two_stage_cluster(model, one, block=8, num_speakers=10)
 
 
+def generator_world(n_spk=8, G=16, K=10, D=13, P=32):
+    """``benchmarks/experiments/diarize_long_bench.py``'s world, reduced:
+    32 acoustic states shared by every speaker in a 13-dim space plus a
+    small per-speaker shift of every state, the UBM, extractor and PLDA
+    trained by the reference's EM as the generator trains them (fewer
+    speakers, G and K cut from 24, 512 and 100), and the port's copies;
+    the recording draws 6 of the speakers in 3-15 s turns."""
+    r = np.random.default_rng(0)
+    phones = r.standard_normal((P, D)) * 4.0
+    offs = r.standard_normal((n_spk, D)) * 1.0
+
+    def draw(spk, n, s):
+        rr = np.random.default_rng(s)
+        z = rr.integers(0, P, n)
+        return (phones[z] + offs[spk]
+                + 0.8 * rr.standard_normal((n, D))).astype(np.float32)
+
+    frames = np.concatenate([draw(s, 1000, 100 + s) for s in range(n_spk)])
+    ubm = jiv.train_diag_ubm(frames, G, iters=2, final_iters=3, seed=0)
+    utts = [draw(s, 150, 200 + 10 * s + u) for s in range(n_spk)
+            for u in range(12)]
+    ids = [s for s in range(n_spk) for _ in range(12)]
+    jext = jiv.train_ivector_extractor(ubm, utts, ivector_dim=K, iters=3,
+                                       seed=1)
+    ivs = np.stack([np.asarray(jiv.utterance_ivector(jext, u), np.float64)
+                    for u in utts])
+    jmodel = jpl.train_plda(ivs, ids, iters=5)
+    ext = speaker_from_reference(dict(
+        weights=jext.ubm.weights, means=jext.ubm.means, vars=jext.ubm.vars,
+        M=jext.M))
+    model = speaker_from_reference(dict(
+        mean=jmodel.mean, transform=jmodel.transform, psi=jmodel.psi))
+    return ext, model, jext, jmodel, draw
+
+
+def generator_recording(draw, frames, speakers=6, seed=7):
+    """The generator's recording: turns of 300-1500 frames, each by one of
+    the first ``speakers`` speakers (seeded) -> (feats, truth)."""
+    rr = np.random.default_rng(seed)
+    parts, truth, t, i = [], [], 0, 0
+    while t < frames:
+        s = int(rr.integers(0, speakers))
+        n = min(int(rr.integers(300, 1500)), frames - t)
+        parts.append(draw(s, n, 5000 + i))
+        truth.append(np.full(n, s))
+        t, i = t + n, i + 1
+    return np.concatenate(parts), np.concatenate(truth)
+
+
+class TestGeneratorWorld:
+    """``diarize_long`` on the reference's seeded long-form world (ROADMAP
+    queue 3, item 2): the port's labels are the reference's, with enough
+    windows for ``two_stage_cluster``'s two stages."""
+
+    def test_diarize_long_matches_reference(self):
+        ext, model, jext, jmodel, draw = generator_world()
+        feats, truth = generator_recording(draw, 15000)
+        block = 16
+        n_windows = len(dz.sliding_windows(len(feats)))
+        assert -(-n_windows // block) >= dz.MIN_BLOCKS
+        labels, segments = dz.diarize_long(ext, model, feats,
+                                           num_speakers=6, block=block,
+                                           device=CPU)
+        jlabels, jsegments = jdz.diarize_long(jext, jmodel, feats,
+                                              num_speakers=6, block=block)
+        np.testing.assert_array_equal(labels, jlabels)
+        assert segments == jsegments
+        assert _purity(labels, truth) > 0.5
+
+
 class TestStreamingDiarizer:
     @staticmethod
     def _run(sd, feats, plan):

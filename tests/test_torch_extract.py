@@ -334,19 +334,27 @@ def test_wav_roundtrip_matches_tpufeat(tmp_path):
 
 def test_import_leaves_jax_and_tpufeat_out():
     """Every module of the package (found by walking it, ``__main__``
-    aside: it runs the CLI) imports without jax, ``tpufeat`` or the
-    benchmarks, and builds no kernel."""
+    aside: it runs the CLI), the models and the C++ golden's bindings
+    among them, imports without jax, flax, optax, orbax, ``tpufeat`` or
+    the benchmarks, and builds no kernel and no C++ library."""
     code = ("import pkgutil, sys, importlib, tpufeat_torch; "
             "names = [m.name for m in pkgutil.walk_packages("
             "tpufeat_torch.__path__, 'tpufeat_torch.') "
             "if m.name.rsplit('.', 1)[-1] != '__main__']; "
             "[importlib.import_module(n) for n in names]; "
             "assert len(names) > 30, names; "
+            "assert {'tpufeat_torch.cpp_golden', "
+            "'tpufeat_torch.models.encoder', 'tpufeat_torch.models.train', "
+            "'tpufeat_torch.models.xvector', 'tpufeat_torch.models.convert'"
+            "} <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'tpufeat', 'benchmarks')]; "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpufeat', "
+            "'benchmarks')]; "
             "assert not bad, bad; "
             "from tpufeat_torch.kernels import _build; "
-            "assert _build.load.cache_info().currsize == 0")
+            "assert _build.load.cache_info().currsize == 0; "
+            "from tpufeat_torch import cpp_golden; "
+            "assert cpp_golden._lib.cache_info().currsize == 0")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -90,14 +90,16 @@ def batched(signals: Iterable[np.ndarray], batch_size: int,
         yield pad_batch(buckets[key], target_len=key)
 
 
-def iter_wav_dir(path: str) -> Iterator[tuple[str, np.ndarray, int]]:
+def iter_wav_dir(path: str, *, native: bool | None = None
+                 ) -> Iterator[tuple[str, np.ndarray, int]]:
     """Yield (filename, samples, rate) for every .wav under ``path``, in
-    sorted walk order, decoded by ``tpufeat_torch.io.read_wav``."""
+    sorted walk order, decoded by ``tpufeat_torch.io.read_wav`` (``native``
+    as there: the C++ decoder when it builds)."""
     for root, _, names in sorted(os.walk(path)):
         for name in sorted(names):
             if name.lower().endswith(".wav"):
                 full = os.path.join(root, name)
-                samples, rate = io.read_wav(full)
+                samples, rate = io.read_wav(full, native=native)
                 yield full, samples, rate
 
 

@@ -5,7 +5,8 @@ WAVE_FORMAT_IEEE_FLOAT or WAVE_FORMAT_EXTENSIBLE files, so it is not used):
 8/16/24/32-bit PCM and 32/64-bit IEEE float are decoded, anything else is
 rejected loudly. Stdlib and numpy only; the samples come back as numpy and
 go to a device through :func:`tpufeat_torch.extract`'s ``device`` argument.
-The optional native C++ decoder of ``tpufeat`` is not carried over.
+The native C++ decoder of ``cpp_ref/`` (``tpufeat_torch.cpp_golden``) has
+the same semantics, and :func:`read_wav` prefers it when it builds.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _decode_samples(raw: bytes, fmt: int, bits: int) -> np.ndarray:
                      "(supported: PCM 8/16/24/32-bit, IEEE float 32/64-bit)")
 
 
-def read_wav(path: str, *,
+def read_wav(path: str, *, native: bool | None = None,
              channel: "int | str | None" = None) -> tuple[np.ndarray, int]:
     """Read a WAV file -> (float32 samples in [-1, 1), sample_rate).
 
@@ -59,8 +60,22 @@ def read_wav(path: str, *,
     channel instead (telephony stereo keeps one speaker per channel —
     Kaldi's ``extract-channel``/wav channel suffix) and
     ``channel="all"`` returns the full ``[C, N]`` array (microphone
-    arrays).
+    arrays). ``native=True`` forces the C++ decoder
+    (``cpp_golden.read_wav_native``: it raises when the library cannot
+    build or load, or the file cannot be read), ``native=False`` this
+    parser, and ``None`` prefers the C++ decoder when it builds, with this
+    parser reading what it refuses (and raising this parser's error).
+    Channel selection routes to this parser: the C++ decoder averages the
+    channels itself.
     """
+    if native is not False and channel is None:
+        from tpufeat_torch import cpp_golden
+        if native or cpp_golden.available():
+            try:
+                return cpp_golden.read_wav_native(path)
+            except (ValueError, OSError):
+                if native:
+                    raise
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":

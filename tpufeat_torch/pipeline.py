@@ -1,9 +1,10 @@
 """Offline corpus pipeline: a directory of WAVs -> features, on the card —
 counterpart of ``tpufeat/pipeline.py``.
 
-A host thread decodes batch k+1 (the port's Python WAV reader) into a
-pinned host arena while batch k is uploaded with a ``non_blocking`` copy,
-extracted on the card and fetched. Length bucketing
+A host thread decodes batch k+1 (on the native C++ decoder's threads,
+``cpp_golden.read_wav_batch``, when it builds; else the port's Python WAV
+reader) into a pinned host arena while batch k is uploaded with a
+``non_blocking`` copy, extracted on the card and fetched. Length bucketing
 (``data.bucket_length``) keeps the corpus at a handful of batch shapes.
 The reference's int16 upload and overlapped fetch are not kept: the pass
 is bound by the decode on the host, and on an H100 each of them made it
@@ -59,14 +60,34 @@ def _refuse(what: str, item: int) -> None:
                               f"ROADMAP.md queue 1, item {item}")
 
 
-def _scan_corpus(wav_dir: str) -> list[tuple[str, int, int]]:
-    """[(path, n_samples, rate)] from the WAV headers alone (no decode)."""
+def _native(native: bool | None) -> bool:
+    """Whether to decode with the C++ decoder: ``native`` as in
+    ``io.read_wav`` (None: when it builds)."""
+    if native is None:
+        from tpufeat_torch import cpp_golden
+        return cpp_golden.available()
+    return native
+
+
+def _scan_corpus(wav_dir: str, native: bool | None = None
+                 ) -> list[tuple[str, int, int]]:
+    """[(path, n_samples, rate)] from the WAV headers alone (no decode):
+    the C++ parser's header scan when ``native`` (as in ``io.read_wav``),
+    this package's parser for what it cannot read."""
+    from tpufeat_torch import cpp_golden
+    use_native = _native(native)
     out = []
     for root, _, names in sorted(os.walk(wav_dir)):
         for name in sorted(names):
             if name.lower().endswith(".wav"):
                 full = os.path.join(root, name)
-                n, rate = io.wav_info(full)
+                header = None
+                if use_native:
+                    try:
+                        header = cpp_golden.wav_header(full)
+                    except ValueError:
+                        pass
+                n, rate = header or io.wav_info(full)
                 out.append((full, n, rate))
     return out
 
@@ -152,11 +173,26 @@ def _plan_batches(entries, batch_size: int, grid: float = 2 ** 0.5
     return plans
 
 
-def _decode_batch(entries, width: int, rows: int, sample_rate: int
+def _decode_batch(entries, width: int, rows: int, sample_rate: int,
+                  native: bool | None = None
                   ) -> tuple[np.ndarray, np.ndarray]:
     """A zero-padded [rows, width] f32 arena of the batch (rows >=
     len(entries); extra rows stay zero with length 0) and its lengths.
-    Segment entries slice their recording, each recording decoded once."""
+    Whole files decode on the C++ decoder's threads when ``native`` (as in
+    ``io.read_wav``); a batch it cannot read, or not at ``sample_rate``,
+    decodes again file by file, which raises the reason. Segment entries
+    slice their recording, each recording decoded once."""
+    if entries and len(entries[0]) != 5 and _native(native):
+        from tpufeat_torch import cpp_golden
+        arena, n, rates = cpp_golden.read_wav_batch(
+            [e[0] for e in entries], width)
+        if (n >= 0).all() and (rates == sample_rate).all():
+            if rows > len(entries):        # a bucket's remainder batch
+                arena = np.concatenate([arena, np.zeros(
+                    (rows - len(entries), width), np.float32)])
+            lengths = np.zeros(rows, np.int32)
+            lengths[: len(entries)] = n
+            return arena, lengths
     arena = np.zeros((rows, width), np.float32)
     lengths = np.zeros(rows, np.int32)
     cache: dict[str, np.ndarray] = {}
@@ -164,7 +200,7 @@ def _decode_batch(entries, width: int, rows: int, sample_rate: int
         path, n = e[0], e[1]
         offset = e[3] if len(e) == 5 else 0
         if path not in cache:
-            s, r = io.read_wav(path)
+            s, r = io.read_wav(path, native=native)
             if r != sample_rate:
                 raise ValueError(f"{path}: rate {r} != {sample_rate}; "
                                  "resample it first")
@@ -199,7 +235,7 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
                    resample: bool = False, dp: bool = False,
                    segments: str | None = None, ivector=None,
                    ivectors: dict | None = None,
-                   bucket_grid: float = 2 ** 0.5,
+                   bucket_grid: float = 2 ** 0.5, native: bool | None = None,
                    device=None) -> Iterator[tuple[str, np.ndarray]]:
     """Yield (wav_path, features [F, D]) for every WAV under ``wav_dir``,
     computed on ``device`` (default the card).
@@ -228,6 +264,10 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     resampler zero-pads its edges), and the features equal ``extract`` of
     ``resampling.resample`` of each file.
 
+    ``native``: decode with the C++ decoder (``io.read_wav``'s argument:
+    None prefers it when it builds, True requires it, False decodes in
+    Python).
+
     ``stats``: a dict to fill with ``files``, ``batches``, ``audio_s``,
     ``device_s`` (upload, dispatch and waiting for the features: the
     consumer's time between items is not in it), ``decode_s`` (the decode
@@ -244,7 +284,7 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
         raise ValueError("cfg.dither > 0 requires a generator: "
                          "extract_corpus(..., generator=torch.Generator("
                          "device).manual_seed(s))")
-    entries = _scan_corpus(wav_dir)
+    entries = _scan_corpus(wav_dir, native)
     if segments is not None:
         entries = _segment_entries(segments, entries, wav_dir)
     if not entries:
@@ -273,7 +313,8 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
         t0 = time.perf_counter()
         batch_entries, width, rows, rate = plans[i]
         try:
-            arena, lengths = _decode_batch(batch_entries, width, rows, rate)
+            arena, lengths = _decode_batch(batch_entries, width, rows, rate,
+                                           native)
             x = _pinned(arena, pin)
             if rate != cfg.sample_rate:
                 x = resampling.resample(x.to(device, non_blocking=True),

@@ -5,8 +5,9 @@ The numerical oracle against which the accelerated path is validated with
 max-abs-error, usable where jax is not installed (``chip_smoke.py`` on the
 GPU host). Everything is float64, stage-by-stage, written for auditability
 rather than speed. The pitch tracker's and the beamformer's goldens are
-here too, and those of the speaker stack (i-vectors, PLDA, fMLLR); those
-of the models arrive with their slice.
+here too, those of the speaker stack (i-vectors, PLDA, fMLLR) and those
+of the models' losses (the RNN-T loss by enumeration, the CTC sequence
+log-probability by the forward pass).
 
 The radix-2 FFT here mirrors the reference's centerpiece OpenCL kernel
 (SURVEY.md §2 C5: iterative Cooley-Tukey, bit-reversal + log2(N) butterfly
@@ -44,6 +45,8 @@ __all__ = [
     "plda_transform_ivector",
     "plda_log_likelihood_ratio",
     "fmllr_stats",
+    "transducer_loss",
+    "ctc_sequence_logp",
 ]
 
 
@@ -767,3 +770,59 @@ def fmllr_stats(x: np.ndarray, weights, means, vars_,
             K += post[t, g] * (means[g] / vars_[g])[:, None] * xe[None, :]
             G += (post[t, g] / vars_[g])[:, None, None] * outer[None]
     return float(beta), K, G
+
+
+# ---------------------------------------------------------------------------
+# The models' losses (goldens of tpufeat_torch.models.train)
+# ---------------------------------------------------------------------------
+
+def transducer_loss(log_probs: np.ndarray, labels, T: int, U: int,
+                    blank: int = 0) -> float:
+    """Float64 golden for :func:`tpufeat_torch.models.train.transducer_loss`
+    (single sequence): brute-force log-sum over ALL monotonic
+    alignments by memoized recursion. ``log_probs``: [T, U+1, V]
+    ALREADY log-softmaxed joint outputs."""
+    import functools
+    e = np.asarray(log_probs, np.float64)
+    lab = tuple(int(v) for v in labels)
+
+    @functools.lru_cache(maxsize=None)
+    def p(t, u):
+        if t == T - 1 and u == U:
+            return e[t, u, blank]
+        outs = []
+        if t < T - 1:
+            outs.append(e[t, u, blank] + p(t + 1, u))
+        if u < U:
+            outs.append(e[t, u, lab[u]] + p(t, u + 1))
+        m = max(outs)
+        return m + np.log(sum(np.exp(o - m) for o in outs))
+
+    return float(-p(0, 0))
+
+
+def ctc_sequence_logp(log_probs: np.ndarray, seq, blank: int = 0) -> float:
+    """Float64 golden: log P(label sequence | CTC) by the standard
+    forward pass over the blank-interleaved expansion. ``log_probs``:
+    [T, V] ALREADY log-softmaxed."""
+    lp = np.asarray(log_probs, np.float64)
+    ext = [blank]
+    for v in seq:
+        ext += [int(v), blank]
+    S = len(ext)
+    NEG = -np.inf
+    a = np.full(S, NEG)
+    a[0] = lp[0, blank]
+    if S > 1:
+        a[1] = lp[0, ext[1]]
+    for t in range(1, lp.shape[0]):
+        b = np.full(S, NEG)
+        for s in range(S):
+            acc = a[s]
+            if s >= 1:
+                acc = np.logaddexp(acc, a[s - 1])
+            if s >= 2 and ext[s] != blank and ext[s] != ext[s - 2]:
+                acc = np.logaddexp(acc, a[s - 2])
+            b[s] = acc + lp[t, ext[s]]
+        a = b
+    return float(np.logaddexp(a[S - 1], a[S - 2] if S > 1 else NEG))
