@@ -67,7 +67,18 @@ CPU's labels; the ASR models (:func:`models_phase`): ``asr_forward`` of
 the main path's batch through whisper-tiny on ``WHISPER80`` and
 conformer-small on ``KALDI39`` (K1 on the path, the front-end's share,
 two rows against the CPU) and a few CTC, RNN-T and x-vector training
-steps with falling losses; and the phase-kernel
+steps with falling losses; multi-device extraction and training over
+``torch.distributed`` (:func:`sharding_phase`): a one-rank NCCL group
+(dp of the main path's batch and time sharding of one hour of audio,
+against the unsharded ``extract``), then four gloo ranks sharing the card
+(dp, time sharding, the 2x2 mesh, pitch dp, the CTC and x-vector steps
+data-parallel against one rank's, dp i-vectors and PLDA scores, and
+``python -m tpufeat_torch.pipeline --dp`` over the corpus WAVs, its ark
+byte for byte the one-rank pass's), each rank's K1 launches counted; the
+toolchain shims (:func:`compat_phase`: ``WhisperFeatureExtractor`` on the
+main path's batch against the golden and the CPU, ``FeatureLoader`` over
+a DataLoader with four workers); the five examples
+(:func:`examples_phase`); and the phase-kernel
 anatomy family (K5a-h): every mode of the eight runners of
 ``tpufeat_torch.experiments`` at its script's own shape through
 ``anatomy_features``, each held against its plain twin and both timed, with
@@ -124,6 +135,21 @@ TOL_MODEL = 1e-3    # asr_forward's logits on the card vs the same model
 #                     on the CPU (K1's twin), scaled by max(1, |CPU|.max()):
 #                     the front-end's 1e-3 fidelity budget, through the
 #                     encoder
+TOL_SHARD_CMVN = 2e-5  # sharded vs unsharded with CMVN, scaled: its sums
+#                       reassociated over the ranks (the reference's dry-run
+#                       bound); without CMVN the two must be equal
+TOL_DP_LOSS = 1e-5  # a dp step's all-reduced loss vs one rank's, relative:
+#                     the batch mean taken as a mean of the ranks' means
+TOL_DP_GRAD = 1e-4  # a dp step's averaged gradient vs one rank's, scaled
+#                     by each tensor's largest entry (tests/
+#                     test_torch_models.py's bound): sums over the rows in
+#                     another order
+TOL_DP_PARAMS = 1e-2  # the parameters after one dp AdamW step vs one
+#                       rank's, in units of the learning rate, wherever the
+#                       gradient is farther from 0 than TOL_DP_GRAD: the
+#                       first update is about sign(g) per entry, so where g
+#                       is within its sum-order noise of 0 the two steps may
+#                       move an entry lr apart either way
 REPS = 11           # timed runs per path (median)
 LAUNCHES = 10       # calls per timed run of a kernel or a twin alone: its
 #                     time is their mean, so the host's time between two
@@ -1688,16 +1714,11 @@ def corpus_phase(files: int, reset_counts, read_counts, card: str,
     from tpufeat_torch import KALDI39, extract, feats_io, io, pipeline
 
     cfg = dataclasses.replace(KALDI39, **FUSED)   # --fused: bf16x3
-    rng = np.random.default_rng(8)
-    lengths = rng.integers(1 * SR, 30 * SR + 1, files)
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         wav_dir = os.path.join(tmp, "wavs")
         os.makedirs(wav_dir)
-        for i, n in enumerate(lengths):
-            io.write_wav(os.path.join(wav_dir, f"u{i:03d}.wav"),
-                         (rng.standard_normal(n) * 0.1).astype(np.float32),
-                         SR)
+        lengths = write_corpus(wav_dir, files)
         audio = float(lengths.sum()) / SR
         ark = os.path.join(tmp, "feats.ark")
         cmd = [sys.executable, "-m", "tpufeat_torch.pipeline", wav_dir, ark,
@@ -2002,6 +2023,609 @@ def models_phase(sig: np.ndarray, reset_counts, read_counts, card: str,
           f"[{card}]", flush=True)
 
 
+def main_batch(batch: int = BATCH, seconds: int = SECONDS) -> np.ndarray:
+    """The main path's batch: ``batch`` x ``seconds`` of seeded noise (seed
+    0), float32."""
+    return (np.random.default_rng(0).standard_normal((batch, seconds * SR))
+            * 0.1).astype(np.float32)
+
+
+def long_recording(seconds: int) -> np.ndarray:
+    """One recording of ``seconds`` of seeded noise (seed 13): the sharding
+    phase's long-form audio."""
+    return (np.random.default_rng(13).standard_normal(seconds * SR)
+            * 0.1).astype(np.float32)
+
+
+def write_corpus(wav_dir: str, files: int) -> np.ndarray:
+    """``files`` PCM16 WAVs of seeded noise in ``wav_dir``, ``u000.wav``
+    on, lengths uniform in 1-30 s (seed 8): the corpus phase's corpus.
+    Returns the lengths."""
+    import os
+
+    from tpufeat_torch import io
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(1 * SR, 30 * SR + 1, files)
+    for i, n in enumerate(lengths):
+        io.write_wav(os.path.join(wav_dir, f"u{i:03d}.wav"),
+                     (rng.standard_normal(n) * 0.1).astype(np.float32), SR)
+    return lengths
+
+
+def fused_presets() -> dict:
+    """WHISPER80, MFCC13_HTK and KALDI39 with the fused flags at bf16x3
+    (K1), by name."""
+    from tpufeat_torch import KALDI39, MFCC13_HTK, WHISPER80
+    return {name: dataclasses.replace(cfg, **FUSED) for name, cfg in (
+        ("WHISPER80", WHISPER80), ("MFCC13_HTK", MFCC13_HTK),
+        ("KALDI39", KALDI39))}
+
+
+def same_or_err(got, want) -> tuple[bool, float]:
+    """(bit for bit, the scaled error) of two tensors, on the host."""
+    got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+    if got.shape != want.shape:
+        raise RuntimeError(f"chip_smoke failed: shape {tuple(got.shape)} "
+                           f"vs {tuple(want.shape)}")
+    return bool(torch.equal(got, want)), scaled_err(got, want)[1]
+
+
+def step_result(loss: torch.Tensor, model, optimizer) -> dict:
+    """A training step's outcome on the host: the loss, the parameters
+    after the step, and the gradient it took (AdamW's first moment after
+    one step, ``(1 - beta1) g``, over ``1 - beta1``), by name."""
+    beta1 = optimizer.param_groups[0]["betas"][0]
+    return {"loss": loss.item(),
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in model.named_parameters()},
+            "grads": {k: (optimizer.state[v]["exp_avg"] / (1 - beta1))
+                      .cpu().numpy() for k, v in model.named_parameters()}}
+
+
+def dp_step_gaps(got: dict, want: dict) -> tuple[float, float, int, int]:
+    """A dp step's :func:`step_result` against one rank's: (the loss's
+    relative gap, the gradient's largest gap scaled by its tensor's
+    largest entry, the parameter entries more than TOL_DP_PARAMS x lr
+    apart, those of them whose gradient is farther than TOL_DP_GRAD from
+    0)."""
+    check(sorted(got["params"]) == sorted(want["params"]),
+          "parameter names differ")
+    grad_gap, moved, unexplained = 0.0, 0, 0
+    for k, g in want["grads"].items():
+        g = g.astype(np.float64)
+        scale = max(float(np.abs(g).max()), 1e-30)
+        grad_gap = max(grad_gap, float(np.abs(got["grads"][k] - g).max())
+                       / scale)
+        apart = np.abs(got["params"][k].astype(np.float64)
+                       - want["params"][k]) > TOL_DP_PARAMS * TRAIN_LR
+        moved += int(apart.sum())
+        unexplained += int((apart & (np.abs(g) > TOL_DP_GRAD * scale))
+                           .sum())
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    return rel, grad_gap, moved, unexplained
+
+
+def train_batch_labels(rows: int, width: int) -> np.ndarray:
+    """The dp CTC step's targets: ``rows`` x ``width`` labels in 1-63
+    (seed 12)."""
+    return np.random.default_rng(12).integers(1, 64, (rows, width))
+
+
+def ctc_step(sig: np.ndarray, rows: slice, labels: np.ndarray, device: str,
+             widths: dict, group=None) -> dict:
+    """One ``ctc_train_step`` at whisper-tiny's width (``make_models()``,
+    a 64-token head, torch seed 1, AdamW at TRAIN_LR) on ``sig[rows]``,
+    data-parallel over ``group`` when a process group is initialised: its
+    :func:`step_result`."""
+    from tpufeat_torch.models import train
+    n = sig.shape[1]
+    per = rows.stop - rows.start
+    torch.manual_seed(1)
+    model = train.make_models(vocab=64, device=device,
+                              **widths.get("whisper", {}))
+    state = train.TrainState(model, train.adamw(model, TRAIN_LR))
+    _, loss = train.ctc_train_step(
+        state, sig[rows], np.full(per, n), labels[rows],
+        np.full(per, labels.shape[1]), cfg=fused_presets()["WHISPER80"],
+        group=group)
+    return step_result(loss, model, state.optimizer)
+
+
+def xvector_features(sig: np.ndarray, rows: slice, device: str):
+    """``KALDI39`` (fused) features of ``sig[rows]`` at the kaldi39
+    phase's ragged lengths, each row shifted by its speaker's seeded offset
+    (row b speaks speaker b % 24, offsets seed 24): (features, mask,
+    speakers)."""
+    from tpufeat_torch import extract
+    n = sig.shape[1]
+    lengths = ragged_lengths(n, len(sig))
+    res = extract(sig[rows], lengths[rows], fused_presets()["KALDI39"],
+                  device=device)
+    speaker = torch.arange(len(sig), device=device)[rows] % 24
+    offsets = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (24, 39)).astype(np.float32)).to(device)
+    return res.features + offsets[speaker][:, None, :], res.mask, speaker
+
+
+def xvector_step(feats, mask, speaker, device: str, widths: dict,
+                 group=None) -> dict:
+    """One ``xvector_train_step`` at ``xvector_model(24)``'s width (torch
+    seed 3, AdamW at TRAIN_LR), data-parallel over ``group`` when a
+    process group is initialised: its :func:`step_result`."""
+    from tpufeat_torch.models import train, xvector
+    torch.manual_seed(3)
+    model = xvector.xvector_model(24, in_dim=39, device=device,
+                                  **widths.get("xvector", {}))
+    state = xvector.XvectorState(model, train.adamw(model, TRAIN_LR))
+    _, loss = xvector.xvector_train_step(state, feats, mask, speaker,
+                                         group=group)
+    return step_result(loss, model, state.optimizer)
+
+
+def sharding_rank(spec: dict) -> dict:
+    """One rank of the sharding phase's gloo group (every rank on the same
+    card, spawned by ``tpufeat_torch.multichip.spawn``): each part driven
+    with K1's launch count set to 0 just before it and read just after,
+    its wall time taken between two barriers; rank 0 holds each result
+    against the unsharded path on its device. Returns {"launches": by
+    part} from every rank, and from rank 0 also "checks" (part -> (bit
+    for bit, scaled error, CMVN or not)), "ms" (part -> ms a call) and the
+    training steps' losses and parameters."""
+    import os
+    import time
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tpufeat_torch import extract, pipeline, pitch, sharding
+    from tpufeat_torch import ivector as iv
+    from tpufeat_torch.kernels import signal
+    from tpufeat_torch.multichip import _speaker_model
+
+    device = spec["device"]
+    rank, ranks = sharding.rank_and_size()
+    cuda = torch.device(device).type == "cuda"
+    sig = main_batch(spec["batch"], spec["seconds"])
+    B, n = sig.shape
+    lengths = np.full(B, n)
+    hour = long_recording(spec["long_s"])
+    cfgs = fused_presets()
+    launches, ms, checks, out = {}, {}, {}, {}
+    # first calls (the kernel library's load, the allocator, a first
+    # collective), outside the timed parts
+    for cfg in cfgs.values():
+        extract(sig[:1], lengths[:1], cfg, device=device)
+    sharding._gather_rows([torch.zeros(1, device=device)])
+
+    def timed(part: str, fn, reps: int = 1):
+        """``fn()`` ``reps`` times on every rank: K1's launches counted,
+        ms a call between two barriers."""
+        dist.barrier()
+        signal.mma_launches = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        ms[part] = 1e3 * (time.perf_counter() - t0) / reps
+        launches[part] = signal.mma_launches
+        return got
+
+    def hold(part: str, got, want, cmvn: bool) -> None:
+        if rank == 0:
+            checks[part] = (*same_or_err(got, want), cmvn)
+
+    # data parallelism over the main path's batch
+    for name in ("WHISPER80", "MFCC13_HTK"):
+        cfg = cfgs[name]
+        res = timed(f"dp {name}", lambda: sharding.extract_data_parallel(
+            sig, lengths, cfg, device=device))
+        if rank == 0:
+            want = extract(sig, lengths, cfg, device=device)
+            check(torch.equal(res.mask, want.mask), f"dp {name} mask")
+            hold(f"dp {name}", res.features, want.features, False)
+            del want
+        del res
+
+    # time sharding of the long recording, a quarter a rank
+    for name in ("KALDI39", "WHISPER80", "MFCC13_HTK"):
+        cfg = cfgs[name]
+        got = timed(f"time {name}", lambda: sharding.extract_time_sharded(
+            hour, cfg, device=device))
+        if rank == 0:
+            hold(f"time {name}", got, extract(hour, cfg=cfg,
+                                              device=device).features,
+                 cfg.cmvn != "none")
+        del got
+
+    # the 2-D mesh: two recordings (the long one's halves), each split
+    # along time over one row of the mesh
+    mesh = DeviceMesh("cpu", torch.arange(ranks).reshape(2, -1),
+                      mesh_dim_names=("dp", "time"))
+    halves = hour.reshape(2, -1)
+    for name in ("KALDI39", "WHISPER80"):
+        cfg = cfgs[name]
+        res = timed(f"mesh {name}", lambda: sharding.extract_batch_time_sharded(
+            halves, np.full(2, halves.shape[1]), cfg, mesh, device=device))
+        if rank == 0:
+            for b in range(2):
+                hold(f"mesh {name} row {b}", res.features[b][res.mask[b]],
+                     extract(halves[b], cfg=cfg, device=device).features,
+                     cfg.cmvn != "none")
+        del res
+
+    # pitch, data-parallel over the batch
+    pcfg = pitch.PitchConfig()
+    feats, valid = timed("pitch dp", lambda: sharding.pitch_features_data_parallel(
+        sig, lengths, pcfg, device=device))
+    if rank == 0:
+        wf, wv = pitch.pitch_features(sig, lengths, pcfg, device=device)
+        check(torch.equal(valid, wv), "pitch dp validity")
+        hold("pitch dp", feats, wf, False)
+    del feats, valid
+
+    # the CTC step at whisper-tiny width, the training batch's rows split
+    rows = sharding._own_rows(spec["train_batch"], None, "ctc")
+    labels = train_batch_labels(spec["train_batch"], 40)
+    out["ctc"] = timed("ctc step", lambda: ctc_step(
+        sig, rows, labels, device, spec["widths"]))
+    timed("ctc step, second call", lambda: ctc_step(
+        sig, rows, labels, device, spec["widths"]))
+
+    # the x-vector step on this rank's rows of the batch's KALDI39 rows,
+    # then dp i-vectors and PLDA trial scores of the same rows
+    rows = sharding._own_rows(B, None, "x-vectors")
+    out["xvector"] = timed("x-vector step", lambda: xvector_step(
+        *xvector_features(sig, rows, device), device, spec["widths"]))
+    ext, plda = _speaker_model(np.random.default_rng(7),
+                               *spec["speaker"])
+
+    def speaker_stack():
+        f, m, _ = xvector_features(sig, rows, device)
+        local = iv.utterance_ivector(ext, f, m, device=device)
+        ivecs, = sharding._gather_rows([local])
+        scores, = sharding._gather_rows([plda.score(
+            ivecs[: B // 2], local, device=device)], dim=1)
+        return ivecs, scores
+
+    ivecs, scores = timed("i-vectors and PLDA", speaker_stack)
+    if rank == 0:
+        f, m, _ = xvector_features(sig, slice(0, B), device)
+        want = iv.utterance_ivector(ext, f, m, device=device)
+        hold("i-vectors", ivecs, want, False)
+        hold("PLDA scores", scores, plda.score(want[: B // 2], want,
+                                               device=device), False)
+        del f, m, want
+    del ivecs, scores
+
+    # the corpus pipeline with --dp: rank 0 writes the ark
+    ark = os.path.join(spec["out_dir"], "dp.ark")
+    rc = timed("corpus --dp", lambda: pipeline.main([
+        spec["wav_dir"], ark, "--preset", "kaldi39", "--fused", "--batch",
+        str(spec["corpus_batch"]), "--dp", "--device", device]))
+    check(rc == 0, f"pipeline --dp exited {rc} in rank {rank}")
+
+    # the collectives alone (the dist layer): the halo exchange of a
+    # quarter of the long recording, a masked max's all_reduce, the gather
+    # of a rank's dp rows of Whisper features
+    shard = torch.from_numpy(hour[: len(hour) // ranks][None]).to(device)
+    timed("dist halo exchange", lambda: sharding._halos(
+        shard, 1, cfgs["MFCC13_HTK"].frame_length - 160, None), reps=10)
+    peak = torch.ones(1, 1, 1, device=device)
+    timed("dist all_reduce(MAX)", lambda: sharding._collective(
+        "all_reduce", peak, None, dist.ReduceOp.MAX), reps=10)
+    part = torch.zeros(B // ranks, cfgs["WHISPER80"].num_frames(n), 80,
+                       device=device)
+    timed("dist gather of dp rows", lambda: sharding._gather_rows([part]),
+          reps=3)
+    # the CTC step's gradient exchange alone: one all_reduce per parameter
+    # tensor of whisper-tiny's shapes, as optimizer_step runs it
+    grads = [torch.zeros(v.shape, device=device) for v in
+             out["ctc"]["params"].values()]
+    timed("dist gradient all_reduce", lambda: [sharding._collective(
+        "all_reduce", g, None) for g in grads], reps=3)
+    for name in ("dist halo exchange", "dist all_reduce(MAX)",
+                 "dist gather of dp rows", "dist gradient all_reduce"):
+        launches.pop(name)
+    out.update(launches=launches)
+    if rank == 0:
+        out.update(checks=checks, ms=ms)
+    return out
+
+
+def sharding_phase(sig: np.ndarray, wav_dir: str, reset_counts, read_counts,
+                   card: str, device: str = "cuda", ranks: int = 4,
+                   long_s: int = 3600, train_batch: int = 16,
+                   corpus_batch: int = 64, widths: dict | None = None,
+                   speaker: tuple = (512, 39, 100)) -> None:
+    """Multi-device extraction and training over ``torch.distributed`` on
+    the one card. (a) A one-rank NCCL group in this process:
+    ``extract_data_parallel`` of the main path's batch ``sig`` and
+    ``extract_time_sharded`` of one ``long_s`` recording on ``WHISPER80``,
+    ``MFCC13_HTK`` and ``KALDI39`` (fused, bf16x3), each against the
+    unsharded ``extract``. (b) ``ranks`` gloo ranks sharing the card
+    (NCCL refuses two ranks on one GPU; :func:`sharding_rank`): dp over
+    ``sig``, time sharding of the long recording, the 2 x ``ranks / 2``
+    mesh over its two halves, pitch dp, the CTC step at whisper-tiny width
+    on ``train_batch`` rows and the x-vector step on ``sig``'s KALDI39
+    rows against the same steps on one rank here, dp i-vectors and PLDA
+    scores (a seeded random model of ``speaker`` = (gaussians, dim,
+    i-vector dim)), and (c) ``python -m tpufeat_torch.pipeline --dp`` over
+    ``wav_dir``, its ark byte for byte the one-rank pass's. K1 must launch
+    in every rank; the ranks' launches are summed into the counts. Times
+    of (b) are four processes sharing one card, not a multi-GPU scaling
+    number. Without CMVN the sharded features must equal the unsharded
+    bit for bit (K1 computes a frame from that frame alone; every halo is
+    an exact copy; a max is order-free); with it within TOL_SHARD_CMVN."""
+    import os
+    import tempfile
+    import time
+
+    import torch.distributed as dist
+
+    from tpufeat_torch import extract, pipeline, sharding
+    from tpufeat_torch.kernels import signal
+    from tpufeat_torch.multichip import spawn
+
+    widths = widths or {}
+    t_phase = time.perf_counter()
+    cfgs = fused_presets()
+    B, n = sig.shape
+    lengths = np.full(B, n)
+    hour = long_recording(long_s)
+    cuda = torch.device(device).type == "cuda"
+
+    def hold(what: str, same: bool, err: float, cmvn: bool) -> None:
+        limit = TOL_SHARD_CMVN if cmvn else 0.0
+        print(f"sharding {what} vs unsharded extract: "
+              f"{'bit for bit' if same else f'scaled {err:.3e}'} "
+              f"(limit {'2e-5 scaled' if cmvn else 'bit for bit'}) "
+              f"[{card}]")
+        check(same or (cmvn and err <= limit),
+              f"sharding {what}: scaled {err:.3e}")
+
+    # (a) a one-rank NCCL group in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(sharding.backend_for(device, 1),
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            backend = dist.get_backend()
+            for cfg in cfgs.values():           # first calls: set-up
+                sharding.extract_data_parallel(sig[:1], lengths[:1], cfg,
+                                               device=device)
+                sharding.extract_time_sharded(hour[: 160 * 1000], cfg,
+                                              device=device)
+            reset_counts()
+            got, walls = {}, {}
+            for kind, fn in (
+                    ("dp", lambda cfg: sharding.extract_data_parallel(
+                        sig, lengths, cfg, device=device)),
+                    ("time", lambda cfg: sharding.extract_time_sharded(
+                        hour, cfg, device=device))):
+                for name, cfg in cfgs.items():
+                    if cuda:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got[kind, name] = fn(cfg)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    walls[kind, name] = 1e3 * (time.perf_counter() - t0)
+            read_counts(f"sharding, one-rank {backend} group",
+                        {"signal_features_mma": 2 * len(cfgs)})
+        finally:
+            dist.destroy_process_group()
+    for (kind, name), res in got.items():
+        cfg = cfgs[name]
+        if kind == "dp":
+            want = extract(sig, lengths, cfg, device=device)
+            check(torch.equal(res.mask, want.mask), f"dp {name} mask")
+            res, want = res.features, want.features
+        else:
+            want = extract(hour, cfg=cfg, device=device).features
+        hold(f"one-rank {backend} {kind} {name}", *same_or_err(res, want),
+             cfg.cmvn != "none")
+        print(f"sharding one-rank {backend} {kind} {name}: "
+              f"{walls[kind, name]:.1f} ms a call (wall, from numpy: the "
+              f"upload included; {'B=%d x %d s' % (B, n // SR) if kind == 'dp' else '%d s of audio' % long_s}) "
+              f"[{card}]")
+    del got, res, want
+
+    # (b, c) the gloo ranks sharing the card
+    plans = len(pipeline._plan_batches(pipeline._scan_corpus(wav_dir,
+                                                             native=True),
+                                       corpus_batch))
+    per_rank = {"dp WHISPER80": 1, "dp MFCC13_HTK": 1, "time KALDI39": 1,
+                "time WHISPER80": 1, "time MFCC13_HTK": 1,
+                "mesh KALDI39": 1, "mesh WHISPER80": 1, "pitch dp": 0,
+                "ctc step": 1, "ctc step, second call": 1,
+                "x-vector step": 1, "i-vectors and PLDA": 1,
+                "corpus --dp": plans}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(device=device, batch=B, seconds=n // SR, long_s=long_s,
+                    train_batch=train_batch, corpus_batch=corpus_batch,
+                    widths=widths, speaker=speaker, wav_dir=wav_dir,
+                    out_dir=tmp)
+        t0 = time.perf_counter()
+        ranks_out = spawn(sharding_rank, ranks, spec, device=device,
+                          timeout=900)
+        spawn_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks_out):
+            check(res["launches"] == per_rank,
+                  f"sharding rank {r} launches {res['launches']}, expected "
+                  f"{per_rank}")
+        reset_counts()
+        signal.mma_launches = sum(sum(res["launches"].values())
+                                  for res in ranks_out)
+        read_counts(f"sharding, {ranks} gloo ranks on one card (the ranks' "
+                    f"launches summed)", {"signal_features_mma":
+                                          ranks * sum(per_rank.values())})
+        first = ranks_out[0]
+        for what, (same, err, cmvn) in first["checks"].items():
+            hold(f"{ranks} gloo ranks, {what}", same, err, cmvn)
+
+        # the corpus: --dp's ark against one rank's
+        ark = os.path.join(tmp, "one.ark")
+        check(pipeline.main([wav_dir, ark, "--preset", "kaldi39", "--fused",
+                             "--batch", str(corpus_batch), "--device",
+                             device]) == 0, "pipeline one rank")
+        with open(ark, "rb") as a, open(os.path.join(tmp, "dp.ark"),
+                                          "rb") as b:
+            same = a.read() == b.read()
+        print(f"sharding corpus: python -m tpufeat_torch.pipeline --dp over "
+              f"{ranks} gloo ranks, its ark {'byte for byte' if same else 'NOT'}"
+              f" the one-rank pass's [{card}]")
+        check(same, "pipeline --dp ark differs from the one-rank ark")
+
+    # the dp training steps against one rank here
+    one = {"ctc": ctc_step(sig, slice(0, train_batch),
+                           train_batch_labels(train_batch, 40), device,
+                           widths),
+           "xvector": xvector_step(*xvector_features(sig, slice(0, B),
+                                                     device),
+                                   device, widths)}
+    for part, what in (("ctc", "CTC step, whisper-tiny"),
+                       ("xvector", "x-vector step")):
+        rel, grad_gap, moved, unexplained = dp_step_gaps(first[part],
+                                                         one[part])
+        entries = sum(v.size for v in one[part]["params"].values())
+        print(f"sharding {ranks} gloo ranks, {what}: loss "
+              f"{first[part]['loss']:.6f} vs one rank's "
+              f"{one[part]['loss']:.6f} (rel {rel:.3e}, limit "
+              f"{TOL_DP_LOSS}); gradient within {grad_gap:.3e} of each "
+              f"tensor's largest entry (limit {TOL_DP_GRAD}); {moved} of "
+              f"{entries} parameter entries more than {TOL_DP_PARAMS} x lr "
+              f"apart after the step, {unexplained} of them where the "
+              f"gradient is farther than its tolerance from 0 (limit 0) "
+              f"[{card}]")
+        check(rel <= TOL_DP_LOSS, f"sharding {what} loss {rel:.3e}")
+        check(grad_gap <= TOL_DP_GRAD, f"sharding {what} gradient "
+              f"{grad_gap:.3e}")
+        check(unexplained == 0, f"sharding {what}: {unexplained} parameter "
+              f"entries apart where the gradient is not near 0")
+    del one
+
+    for part, t in first["ms"].items():
+        print(f"sharding {ranks} gloo ranks sharing one card, {part}: "
+              f"{t:.3f} ms a call (wall, between barriers; four processes "
+              f"on one card, not a multi-GPU scaling number) [{card}]")
+    print(f"sharding phase: {spawn_s:.1f} s for the {ranks} ranks (spawn "
+          f"included), {time.perf_counter() - t_phase:.1f} s in all "
+          f"[{card}]", flush=True)
+
+
+def compat_phase(sig: np.ndarray, wav_dir: str, reset_counts, read_counts,
+                 card: str, device: str = "cuda", cpu_rows: int = 8,
+                 batch: int = 64, workers: int = 4) -> None:
+    """The toolchain shims. ``WhisperFeatureExtractor`` on the card (the
+    fused route at bf16x3: K1) over the main path's utterances ``sig``,
+    row 0 against the float64 golden and ``cpu_rows`` rows against the
+    same shim on the CPU, both within TOL_GOLDEN, timed; then a
+    ``FeatureLoader`` over a ``DataLoader`` (``workers`` worker processes,
+    ``pad_collate``, ``batch`` rows) of ``wav_dir``'s WAVs on ``KALDI39``
+    fused, each batch equal to ``extract`` of the same padded batch."""
+    import glob
+    import os
+    import time
+
+    from tpufeat_torch import WHISPER80, compat, extract
+    from tpufeat_torch.reference import cpu
+
+    B, n = sig.shape
+    fe = compat.WhisperFeatureExtractor(device=device)
+    cuda = torch.device(device).type == "cuda"
+    check(fe.config.use_pallas == cuda and fe.config.fused_framing == cuda,
+          "the shim's route")
+    reset_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fe(sig, sampling_rate=SR, return_tensors="pt")["input_features"]
+    if cuda:
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    read_counts("compat WhisperFeatureExtractor",
+                {"signal_features_mma": 1 if cuda else 0})
+    check(got.shape == (B, 80, fe.nb_max_frames)
+          and bool(torch.isfinite(got).all()),
+          f"compat shape {tuple(got.shape)}")
+    x0 = np.zeros(fe.n_samples)                   # the shim's 30 s window
+    x0[: min(n, fe.n_samples)] = sig[0, : fe.n_samples]
+    gold = torch.from_numpy(cpu.extract(x0, WHISPER80)).T
+    _, rel = scaled_err(got[0].cpu(), gold)
+    host = compat.WhisperFeatureExtractor(device="cpu")(
+        sig[:cpu_rows])["input_features"]
+    _, rel_cpu = scaled_err(got[:cpu_rows].cpu(), torch.from_numpy(host))
+    print(f"compat WhisperFeatureExtractor (fused, bf16x3) on B={B} x "
+          f"{n // SR} s: {wall:.1f} ms a call (wall, from numpy to the "
+          f"card's tensor); row 0 vs float64 golden scaled {rel:.3e}, "
+          f"{cpu_rows} rows vs the shim on the CPU scaled {rel_cpu:.3e} "
+          f"(limit {TOL_GOLDEN}) [{card}]")
+    check(rel <= TOL_GOLDEN, f"compat vs golden {rel:.3e}")
+    check(rel_cpu <= TOL_GOLDEN, f"compat vs CPU shim {rel_cpu:.3e}")
+    del got, host
+
+    cfg = fused_presets()["KALDI39"]
+    paths = sorted(glob.glob(os.path.join(wav_dir, "*.wav")))
+
+    def loader(workers: int):
+        return torch.utils.data.DataLoader(
+            compat.TorchWavDataset(paths), batch_size=batch, shuffle=False,
+            num_workers=workers, collate_fn=compat.pad_collate)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    batches, arrivals = [], []
+    for got in compat.FeatureLoader(loader(workers), cfg, device=device):
+        batches.append(got)
+        arrivals.append(time.perf_counter() - t0)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("compat FeatureLoader", {"signal_features_mma":
+                                         len(batches) if cuda else 0})
+    same = 0
+    for got, plain in zip(batches, loader(0)):
+        want = extract(plain["signal"], plain["lengths"], cfg, device=device)
+        check(got["keys"] == plain["keys"], "compat loader keys")
+        same += all(torch.equal(got[k], getattr(want, k))
+                    for k in ("features", "num_frames", "mask"))
+    print(f"compat FeatureLoader over {len(paths)} WAVs ({workers} workers, "
+          f"batches of {batch}): {len(batches)} batches in {wall:.2f} s "
+          f"(each out at {['%.2f' % t for t in arrivals]} s: the workers' "
+          f"start, then their decode), "
+          f"{same} of them bit for bit extract of the same padded batch "
+          f"[{card}]")
+    check(same == len(batches) == -(-len(paths) // batch),
+          f"compat FeatureLoader: {same} of {len(batches)} batches")
+
+
+def examples_phase(reset_counts, read_counts, card: str,
+                   device: str = "cuda") -> None:
+    """Each example of ``tpufeat_torch.examples`` through its
+    ``main(device=)`` at its own size (each checks its own outcome); none
+    takes the fused route, so none launches a kernel."""
+    import tempfile
+    import time
+
+    from tpufeat_torch.examples import NAMES
+    for name in NAMES:
+        mod = importlib.import_module(f"tpufeat_torch.examples.{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        if name == "offline_corpus":
+            with tempfile.TemporaryDirectory() as tmp:
+                mod.main(tmp, device=device)
+        else:
+            mod.main(device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        read_counts(f"example {name}", {})
+        print(f"examples {name}: main(device={device!r}) returned in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2178,8 +2802,7 @@ def main() -> int:
     cfg_mel = dataclasses.replace(WHISPER80, **FUSED)
     cfg_mfcc = dataclasses.replace(MFCC13_HTK, **FUSED)
     n = SECONDS * SR
-    sig = (np.random.default_rng(0).standard_normal((BATCH, n))
-           * 0.1).astype(np.float32)
+    sig = main_batch()
     lengths = np.full((BATCH,), n, dtype=np.int32)
     reset_counts()
     mel = extract(sig, lengths, cfg_mel, device="cuda")
@@ -2754,6 +3377,16 @@ def main() -> int:
     # conformer-small through asr_forward, K1 on the path) and the CTC,
     # RNN-T and x-vector training steps
     models_phase(sig, reset_counts, read_counts, card)
+
+    # 9h-j. multi-device extraction and training over torch.distributed (a
+    # one-rank NCCL group, four gloo ranks sharing the card, --dp); the
+    # toolchain shims; the examples. The corpus phase's WAVs once more
+    import tempfile
+    with tempfile.TemporaryDirectory() as wav_dir:
+        write_corpus(wav_dir, 256)
+        sharding_phase(sig, wav_dir, reset_counts, read_counts, card)
+        compat_phase(sig, wav_dir, reset_counts, read_counts, card)
+    examples_phase(reset_counts, read_counts, card)
 
     # 10. the anatomy family (K5a-h): each runner's every mode at its
     # script's shape through anatomy_features, then each mode against its

@@ -66,13 +66,31 @@ def test_models_and_native_join_the_namespace():
     assert tpufeat_torch.__version__ == tpufeat.__version__
 
 
+@pytest.mark.parametrize("module", ["sharding", "compat"])
+def test_module_names_are_ported(module):
+    """Every name of the reference module's ``__all__`` is in the port's
+    module of the same name, and names a function or class of that name
+    there."""
+    import importlib
+    ref = importlib.import_module(f"tpufeat.{module}")
+    got = importlib.import_module(f"tpufeat_torch.{module}")
+    assert set(ref.__all__) <= set(got.__all__), \
+        sorted(set(ref.__all__) - set(got.__all__))
+    for name in ref.__all__:
+        obj = getattr(got, name)
+        assert obj.__module__ == f"tpufeat_torch.{module}", name
+        assert obj.__name__ == getattr(ref, name).__name__, name
+
+
 def test_import_is_lazy():
     """``import tpufeat_torch`` builds no CUDA code and no C++ library,
-    and pulls in neither jax nor the reference."""
-    code = ("import sys, tpufeat_torch; "
+    starts no process group, and pulls in neither jax nor the
+    reference."""
+    code = ("import sys, tpufeat_torch, torch.distributed as dist; "
             "from tpufeat_torch.kernels import _build; "
             "assert _build.load.cache_info().currsize == 0; "
             "assert tpufeat_torch.cpp_golden._lib.cache_info().currsize == 0; "
+            "assert not dist.is_initialized(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
             "'jaxlib', 'flax', 'optax', 'orbax', 'tpufeat')]; "
             "assert not bad, bad")

@@ -454,19 +454,34 @@ def test_pipeline_dither_generator(corpus):
 
 
 def test_pipeline_refuses_unported_options(corpus, tmp_path):
-    """dp= / --dp (item 13) is still refused; the i-vector and fMLLR
-    surface is ported, and refuses only a call that lacks its other
-    half."""
+    """dp= / --dp run: without a process group one rank, the arks and
+    rows those of the plain pass bit for bit, and dither under dp refused
+    (as the reference refuses it). The i-vector and fMLLR surface refuses
+    only a call that lacks its other half."""
     root, _ = corpus
-    with pytest.raises(NotImplementedError, match="item 13"):
-        next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
-                                     dp=True))
+    plain = dict(pipeline.extract_corpus(root, KALDI39, batch_size=3,
+                                         device="cpu"))
+    dp = dict(pipeline.extract_corpus(root, KALDI39, batch_size=3,
+                                      device="cpu", dp=True))
+    assert sorted(dp) == sorted(plain) and len(dp) == 7
+    for k in plain:
+        np.testing.assert_array_equal(dp[k], plain[k])
+    with pytest.raises(ValueError, match="dp=True has no per-batch"):
+        next(pipeline.extract_corpus(
+            root, dataclasses.replace(KALDI39, dither=1.0), device="cpu",
+            dp=True, generator=torch.Generator().manual_seed(0)))
     with pytest.raises(ValueError, match="ivectors= dict"):
         next(pipeline.extract_corpus(root, MFCC13_HTK, device="cpu",
                                      ivector=object()))
     out = str(tmp_path / "o.npz")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipeline.main([root, out, "--dp", "--device", "cpu"])
+    arks = {}
+    for name, flags in (("plain", []), ("dp", ["--dp"])):
+        arks[name] = str(tmp_path / f"{name}.ark")
+        assert pipeline.main([root, arks[name], "--preset", "kaldi39",
+                              "--batch", "3", *flags, "--device",
+                              "cpu"]) == 0
+    with open(arks["plain"], "rb") as a, open(arks["dp"], "rb") as b:
+        assert a.read() == b.read()
     for flags, match in ((["--fmllr-ubm", "u.npz"], "--fmllr-ark"),
                          (["--fmllr-ark", "f.ark"], "--fmllr-ubm"),
                          (["--ivector-ark", "i.ark"],

@@ -3,8 +3,9 @@ RNN-T steps, the decoders, the error rate) against ``tpufeat.models`` on
 the CPU, with the reference's parameters carried across by
 ``models.convert.state_dict_from_flax``, and against the float64 goldens
 of ``tpufeat_torch.reference.cpu``; the reference's own checks of
-``tests/test_models.py`` mirrored (its dp-sharded RNN-T case waits for
-the port's sharding).
+``tests/test_models.py`` mirrored; and the data-parallel steps
+(``dryrun_train_step`` as an 8-rank gloo group on the CPU) against the
+reference's CTC and RNN-T steps on the whole batch.
 
 Tolerances:
 - encoder, joint and head outputs at d=32: atol 1e-5 (the two
@@ -16,6 +17,10 @@ Tolerances:
   of each tensor's largest entry; the RNN-T gradient against finite
   differences atol 2e-3 (the reference's);
 - AdamW against ``optax.adamw``: atol 1e-6 after three steps;
+- the dp steps: the all-reduced loss rtol 1e-5 (the sums over the ranks
+  reassociated), the parameters after one step atol 1e-6 (one AdamW step
+  at lr 1e-4 moves a parameter by about 1e-4, its direction set by the
+  gradient, which agrees to 1e-4 of each tensor's scale);
 - decoders, alignments and error rates: equal.
 """
 
@@ -43,6 +48,7 @@ from tpufeat_torch.models import train
 from tpufeat_torch.reference import cpu
 
 from conftest import make_signal
+from tpufeat_torch.multichip import spawn
 
 CPU = "cpu"
 ATOL = 1e-5
@@ -692,3 +698,60 @@ class TestPrefixBeamCtc:
                 assert train.prefix_beam_ctc_decode(_t(lp), mask,
                                                     beam=beam) == \
                     jtrain.prefix_beam_ctc_decode(lp, mask, beam=beam)
+
+
+class TestDataParallel:
+    """``dryrun_train_step`` over 8 ranks (two rows each) from the
+    reference's initial parameters against the reference's CTC and RNN-T
+    steps on the whole batch of 16 (``tpufeat/models/train.py``'s dry
+    run)."""
+
+    @pytest.fixture(scope="class")
+    def steps(self):
+        B, n = 16, 16000
+        rng = np.random.default_rng(0)
+        audio = (rng.standard_normal((B, n)) * 0.1).astype(np.float32)
+        labels = rng.integers(1, 16, size=(B, 8)).astype(np.int32)
+        lengths, llen = np.full(B, n, np.int32), np.full(B, 8, np.int32)
+        res = jfeatures.extract_impl(jnp.asarray(audio[:1]),
+                                     jnp.asarray(lengths[:1]), JPLAIN)
+        kw = dict(dim=32, layers=1, heads=2, vocab=16)
+        tx = optax.adamw(1e-4)
+        want, sds = {}, []
+        for name, jm, init_args, step, port in (
+                ("ctc", jtrain.make_models(**kw), (), jtrain.ctc_train_step,
+                 train.make_models(**kw, device=CPU)),
+                ("rnnt", jtrain.make_transducer(**kw, arch="whisper"),
+                 (labels[:1],), jtrain.transducer_train_step,
+                 train.make_transducer(**kw, arch="whisper", device=CPU))):
+            params = jax.jit(jm.init)(
+                jax.random.PRNGKey(len(sds)), res.features, res.mask,
+                *init_args)
+            st = jtrain.TrainState(params, tx.init(params),
+                                   jnp.zeros((), jnp.int32))
+            st, loss = jax.jit(functools.partial(
+                step, model=jm, tx=tx, cfg=JPLAIN))(
+                st, audio, lengths, labels, llen)
+            want[name] = (float(loss), {
+                k: v.numpy() for k, v in convert.state_dict_from_flax(
+                    _np(st.params), port).items()})
+            sds.append({k: v.numpy() for k, v in
+                        convert.state_dict_from_flax(_np(params),
+                                                     port).items()})
+        got = spawn(train.dryrun_train_step, 8, None, "whisper", CPU, None,
+                    tuple(sds), device=CPU)[0]
+        return want, got
+
+    @pytest.mark.parametrize("name", ["ctc", "rnnt"])
+    def test_loss_matches_reference(self, steps, name):
+        want, got = steps
+        np.testing.assert_allclose(got[name], want[name][0], rtol=1e-5)
+
+    @pytest.mark.parametrize("name", ["ctc", "rnnt"])
+    def test_parameters_match_reference(self, steps, name):
+        want, got = steps
+        params = got[f"{name}_params"]
+        assert sorted(params) == sorted(want[name][1])
+        for k, w in want[name][1].items():
+            np.testing.assert_allclose(params[k], w, rtol=0, atol=1e-6,
+                                       err_msg=k)

@@ -1,14 +1,16 @@
 """The port's x-vector network (``tpufeat_torch.models.xvector``) against
 ``tpufeat.models.xvector`` on the CPU, with the reference's parameters
 carried across by ``models.convert.state_dict_from_flax``; the
-reference's own checks of ``tests/test_xvector.py`` mirrored (its
-dp-sharded step waits for the port's sharding): training separates
-speakers, masked pooling ignores padding, embeddings compose with the
-port's PLDA backend.
+reference's own checks of ``tests/test_xvector.py`` mirrored: training
+separates speakers, masked pooling ignores padding, embeddings compose
+with the port's PLDA backend, and the data-parallel step (8 ranks of a
+gloo group on the CPU) matches the reference's step on the whole batch.
 
 Tolerances: embeddings and logits at channels 32 atol 1e-5 (measured
 under 4e-7); one step's loss rtol 1e-5 and gradients 1e-4 of each
-tensor's largest entry; padding invariance atol 2e-4 (the reference's).
+tensor's largest entry; padding invariance atol 2e-4 (the reference's);
+the dp step's loss rtol 1e-5 and parameters atol 1e-5 (the reference's
+own dp test, ``tests/test_xvector.py``).
 """
 
 import jax
@@ -23,6 +25,9 @@ from tpufeat.models import xvector as jxv
 from tpufeat_torch import plda as pl
 from tpufeat_torch.models import convert, train
 from tpufeat_torch.models import xvector as xv
+from tpufeat_torch.multichip import spawn
+
+import _torch_dist_cases
 
 CPU = "cpu"
 
@@ -145,3 +150,45 @@ class TestReference:
             gap = (p.grad - wg[name]).abs().max() / wg[name].abs().max()
             assert gap < 1e-4, name
         assert state.step == 1
+
+
+class TestDataParallel:
+    """The x-vector step with the batch's 24 rows split over 8 ranks
+    against the reference's step on the whole batch (optax.adam at 1e-3,
+    ``tests/test_xvector.py``'s dp case), from the same parameters; every
+    loss is a mean over rows, so equal shards give the whole batch's
+    gradient."""
+
+    @pytest.fixture(scope="class")
+    def step(self):
+        feats, labels = _batch(seed=4)
+        mask = np.ones(feats.shape[:2], np.float32)
+        mask[::3, 35:] = 0.0
+        jm = jxv.xvector_model(4, embed_dim=16, channels=32)
+        params = jax.jit(jm.init)(jax.random.PRNGKey(0), feats, mask)
+        tx = optax.adam(1e-3)
+        s0 = jxv.XvectorState(params, tx.init(params),
+                              jnp.zeros((), jnp.int32))
+        want_state, want_loss = jax.jit(
+            lambda s, f, m, l: jxv.xvector_train_step(
+                s, f, m, l, model=jm, tx=tx))(s0, feats, mask, labels)
+        model = xv.xvector_model(4, in_dim=13, embed_dim=16, channels=32,
+                                 device=CPU)
+        sd = {k: v.numpy() for k, v in convert.state_dict_from_flax(
+            _np(params), model).items()}
+        want = {k: v.numpy() for k, v in convert.state_dict_from_flax(
+            _np(want_state.params), model).items()}
+        got = spawn(_torch_dist_cases.xvector_dp_step, 8, sd, feats, mask,
+                    labels, 32, device=CPU)[0]
+        return float(want_loss), want, got
+
+    def test_loss_matches_reference(self, step):
+        want_loss, _, got = step
+        np.testing.assert_allclose(got["loss"], want_loss, rtol=1e-5)
+
+    def test_parameters_match_reference(self, step):
+        _, want, got = step
+        assert sorted(got["params"]) == sorted(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["params"][k], w, rtol=0,
+                                       atol=1e-5, err_msg=k)

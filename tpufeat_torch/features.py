@@ -106,17 +106,38 @@ def deltas(feat: torch.Tensor, num_frames: torch.Tensor,
     return out / denom
 
 
+def frame_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., T, D] summed over its frames -> [..., 1, D], pairwise
+    over T padded with zeros to a power of two: halves added, then their
+    halves. The order is fixed per frame index, and frames of zeros past
+    the end add exactly 0, so a row's sum depends on its own valid frames
+    alone: neither on the rows beside it (a library reduction picks its
+    order from the whole tensor's shape) nor on the batch's padded width.
+    An utterance's CMVN is then the same bits alone, in a batch of 16 rows
+    or of 64, as data-parallel corpus passes need."""
+    t = x.shape[-2]
+    if t <= 1:
+        return x.sum(dim=-2, keepdim=True)
+    h = 1 << (t - 1).bit_length() - 1           # h < t <= 2h
+    x = torch.cat([x.narrow(-2, 0, t - h) + x.narrow(-2, h, t - h),
+                   x.narrow(-2, t - h, 2 * h - t)], dim=-2)
+    while h > 1:
+        h //= 2
+        x = x.narrow(-2, 0, h) + x.narrow(-2, h, h)
+    return x
+
+
 def cmvn(feat: torch.Tensor, mask: torch.Tensor, mode: str) -> torch.Tensor:
     """Per-utterance cepstral mean (and variance) normalization over valid
-    frames only, the count clamped at 1."""
+    frames only, the count clamped at 1; the sums by :func:`frame_sum`."""
     if mode == "none":
         return feat
     m = mask[..., None].to(feat.dtype)
     cnt = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
-    mean = (feat * m).sum(dim=-2, keepdim=True) / cnt
+    mean = frame_sum(feat * m) / cnt
     out = feat - mean
     if mode == "meanvar":
-        var = ((feat - mean) ** 2 * m).sum(dim=-2, keepdim=True) / cnt
+        var = frame_sum((feat - mean) ** 2 * m) / cnt
         out = out / torch.sqrt(var + 1e-10)
     return out
 
@@ -130,7 +151,7 @@ def _centred(feat: torch.Tensor, nf: torch.Tensor
     minutes of audio)."""
     t = torch.arange(feat.shape[1], device=feat.device)[None, :]
     mask = (t < nf).to(feat.dtype)[..., None]                  # [B, T, 1]
-    g = (feat * mask).sum(dim=1, keepdim=True) \
+    g = frame_sum(feat * mask) \
         / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
     return (feat - g) * mask, g
 

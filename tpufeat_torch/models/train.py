@@ -22,8 +22,14 @@ Departures from the reference:
 - :func:`transducer_loss` runs the reference's alpha recursion by
   anti-diagonals (T + U vectorised steps) instead of a scan over T with a
   loop over U inside: the same per-cell formula in the same order;
-- ``dryrun_train_step`` (the dp-sharded step on a mesh) waits for the
-  port's sharding (ROADMAP.md queue 1, item 13).
+- data parallelism: each rank passes its rows of the batch and the same
+  replicated model; with ``group`` (default: the default process group,
+  none when no group is initialised) the parameters are broadcast from the
+  group's rank 0 before the first step, and after ``backward`` each
+  gradient is all-reduced and divided by the group's size. Every loss is a
+  mean over the batch, so equal shards give the whole batch's gradient
+  (the reference's gradients psum'd from the sharding spec), and the
+  reported loss is the all-reduced mean (:func:`dryrun_train_step`).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ __all__ = ["TrainState", "adamw", "make_models", "asr_forward", "ctc_loss",
            "greedy_ctc_decode", "edit_distance", "edit_alignment",
            "token_error_rate", "transducer_loss", "greedy_transducer_decode",
            "make_transducer", "transducer_train_step",
-           "beam_transducer_decode", "prefix_beam_ctc_decode"]
+           "beam_transducer_decode", "prefix_beam_ctc_decode",
+           "dryrun_train_step"]
 
 #: optax.adamw's weight decay (torch's AdamW defaults to 1e-2)
 WEIGHT_DECAY = 1e-4
@@ -143,28 +150,48 @@ def ctc_loss(logits: torch.Tensor, mask: torch.Tensor, labels,
                       blank=blank, reduction="none", zero_infinity=True)
 
 
-def optimizer_step(state: TrainState, loss_fn
+def optimizer_step(state: TrainState, loss_fn, group=None
                    ) -> tuple[TrainState, torch.Tensor]:
     """One step of ``state``'s optimizer on ``loss_fn()`` (a scalar
-    loss), TF32 off throughout: the shared body of the training steps."""
+    loss, the mean over this rank's rows), TF32 off throughout: the shared
+    body of the training steps. Over the ranks of ``group`` (see the
+    module's notes): the parameters are broadcast from the group's rank 0
+    at step 0, each gradient is averaged over the ranks before the update,
+    and the returned loss is the ranks' mean."""
+    from tpufeat_torch import sharding
+    _, ranks = sharding.rank_and_size(group)
     with no_tf32():
+        if ranks > 1 and state.step == 0:
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    p.copy_(sharding._collective("broadcast", p, group))
         loss = loss_fn()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if ranks > 1:
+            for p in state.model.parameters():
+                if p.grad is not None:
+                    p.grad = sharding._collective("all_reduce", p.grad,
+                                                  group) / ranks
         state.optimizer.step()
     state.step += 1
-    return state, loss.detach()
+    loss = loss.detach()
+    if ranks > 1:
+        loss = sharding._collective("all_reduce", loss, group) / ranks
+    return state, loss
 
 
 def ctc_train_step(state: TrainState, audio, lengths, labels,
-                   label_lengths, *, cfg: FeatureConfig
+                   label_lengths, *, cfg: FeatureConfig, group=None
                    ) -> tuple[TrainState, torch.Tensor]:
     """One CTC training step on raw audio: (the updated state, the mean
-    loss of the batch before the update)."""
+    loss of the batch before the update). Under a process group, each rank
+    passes its rows and the step is data-parallel over ``group``
+    (:func:`optimizer_step`)."""
     def loss_fn():
         logits, mask = asr_forward(state.model, audio, lengths, cfg)
         return ctc_loss(logits, mask, labels, label_lengths).mean()
-    return optimizer_step(state, loss_fn)
+    return optimizer_step(state, loss_fn, group)
 
 
 # --- checkpoint/resume for training state ---
@@ -407,11 +434,12 @@ def make_transducer(dim: int = 128, layers: int = 2, heads: int = 4,
 
 
 def transducer_train_step(state: TrainState, audio, lengths, labels,
-                          label_lengths, *, cfg: FeatureConfig
+                          label_lengths, *, cfg: FeatureConfig, group=None
                           ) -> tuple[TrainState, torch.Tensor]:
     """One RNN-T training step: raw audio -> front-end -> encoder ->
     stateless prediction and joint -> :func:`transducer_loss` (the mean
-    over the batch)."""
+    over the batch); data-parallel over ``group`` as
+    :func:`ctc_train_step`."""
     def loss_fn():
         model = state.model
         with torch.no_grad():
@@ -420,7 +448,57 @@ def transducer_train_step(state: TrainState, audio, lengths, labels,
         logits, mask = model(res.features.float(), res.mask, labels)
         tlen = mask.sum(dim=-1)
         return transducer_loss(logits, tlen, labels, label_lengths).mean()
-    return optimizer_step(state, loss_fn)
+    return optimizer_step(state, loss_fn, group)
+
+
+def dryrun_train_step(group=None, arch: str = "whisper", device=None,
+                      batch: int | None = None,
+                      state_dicts: tuple | None = None) -> dict:
+    """A tiny end-to-end training step, data-parallel over the ranks of
+    ``group``: the reference's shapes (``batch`` rows of 1 s, default two
+    a rank; WHISPER80 on the plain path, d=32, one layer, two heads, 16
+    tokens, 8-label targets, AdamW at 1e-4), one CTC step and then one
+    RNN-T step, the batch drawn from seed 0 and split over the ranks, the
+    models seeded (torch seeds 0 and 1) and replicated from rank 0.
+    ``state_dicts``: (CTC model, transducer) state dicts to start from
+    instead. Returns {"ctc": loss, "rnnt": loss} (the whole batch's mean
+    losses) and each model's parameters after its step ("ctc_params",
+    "rnnt_params": numpy arrays by name), on ``device`` (default the
+    card)."""
+    from tpufeat_torch import sharding
+    from tpufeat_torch.config import WHISPER80
+    device = features.default_device(device)
+    rank, ranks = sharding.rank_and_size(group)
+    B, n = (2 * ranks if batch is None else batch), 16000
+    cfg = dataclasses.replace(WHISPER80, use_pallas=False)
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal((B, n)) * 0.1).astype(np.float32)
+    labels = rng.integers(1, 16, size=(B, 8)).astype(np.int64)
+    rows = sharding._own_rows(B, group, "dryrun_train_step")
+    per = rows.stop - rows.start
+    lengths, label_lengths = np.full(per, n), np.full(per, 8)
+    out = {}
+    for seed, (name, make, step) in enumerate((
+            ("ctc", make_models, ctc_train_step),
+            ("rnnt", make_transducer, transducer_train_step))):
+        torch.manual_seed(seed)
+        model = make(dim=32, layers=1, heads=2, vocab=16, arch=arch,
+                     device=device)
+        if state_dicts is not None:
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                   state_dicts[seed].items()})
+        state = TrainState(model, adamw(model, 1e-4))
+        state, loss = step(state, audio[rows], lengths, labels[rows],
+                           label_lengths, cfg=cfg, group=group)
+        out[name] = loss.item()
+        if not math.isfinite(out[name]):
+            raise RuntimeError(f"dryrun {name} loss {out[name]}")
+        out[f"{name}_params"] = {k: v.detach().cpu().numpy()
+                                 for k, v in model.state_dict().items()}
+    if rank == 0:
+        print(f"dryrun train step ({arch}, {ranks} ranks): ctc loss "
+              f"{out['ctc']:.3f}, rnnt loss {out['rnnt']:.3f}")
+    return out
 
 
 def beam_transducer_decode(joint_fn, enc, mask, beam: int = 4,

@@ -89,10 +89,13 @@ def xvector_model(n_speakers: int, *, in_dim: int = 39,
                       channels=channels, device=device)
 
 
-def xvector_train_step(state: XvectorState, feats, mask, labels
-                       ) -> tuple[XvectorState, torch.Tensor]:
+def xvector_train_step(state: XvectorState, feats, mask, labels,
+                       group=None) -> tuple[XvectorState, torch.Tensor]:
     """One softmax cross-entropy step over speaker labels: (the updated
-    state, the batch's mean loss before the update)."""
+    state, the batch's mean loss before the update). Under a process group
+    each rank passes its rows and the step is data-parallel over ``group``
+    (``train.optimizer_step``): the loss is a mean over the rows, so equal
+    shards give the whole batch's gradient."""
     dev = device_of(state.model)
 
     def loss_fn():
@@ -100,7 +103,7 @@ def xvector_train_step(state: XvectorState, feats, mask, labels
                                 features.on_device(mask, dev))
         return F.cross_entropy(logits, features.on_device(labels,
                                                           dev).long())
-    return optimizer_step(state, loss_fn)
+    return optimizer_step(state, loss_fn, group)
 
 
 def extract_xvectors(model: XvectorNet, feats, num_frames=None

@@ -22,8 +22,15 @@ file (``ivector-extract``), written with ``--ivector-ark``;
 ``--fmllr-ubm`` estimates one fMLLR transform per speaker
 (``gmm-est-fmllr``), written with ``--fmllr-ark``; both on ``device``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``dp=`` /
-``--dp`` (ROADMAP.md queue 1, item 13).
+``dp=True`` / ``--dp`` splits every batch's rows over the ranks of the
+default process group (``sharding``): each rank decodes and extracts its
+rows on its card, and rank 0 gathers them, yields them and writes the
+archives; the other ranks yield and write nothing. Without a process group
+it is a one-rank group. Under ``torchrun`` the command joins the group
+torchrun describes:
+
+  torchrun --nproc-per-node=4 -m tpufeat_torch.pipeline /corpus/wavs \
+      feats.ark --preset kaldi39 --fused --dp
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpufeat_torch import cli, data, features, feats_io, fmllr, io
 from tpufeat_torch import ivector as ivmod
-from tpufeat_torch import resampling
+from tpufeat_torch import resampling, sharding
 from tpufeat_torch.config import PRESETS, FeatureConfig
 
 #: extract-segments' end-time forgiveness: segment specs are usually
@@ -53,11 +61,6 @@ SEGMENT_END_TOLERANCE_S = 0.1
 #: the name of the decode thread (one at a time, joined before the
 #: generator returns, raises or is closed)
 DECODE_THREAD = "tpufeat_torch-decode"
-
-
-def _refuse(what: str, item: int) -> None:
-    raise NotImplementedError(f"{what} is not ported to tpufeat_torch yet: "
-                              f"ROADMAP.md queue 1, item {item}")
 
 
 def _native(native: bool | None) -> bool:
@@ -268,6 +271,13 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     None prefers it when it builds, True requires it, False decodes in
     Python).
 
+    ``dp``: split every batch's rows over the ranks of the default process
+    group (rows padded to a multiple of the ranks with zero rows of length
+    0, which are masked): each rank decodes and extracts its rows on
+    ``device``, and rank 0 gathers and yields them; the other ranks yield
+    nothing. Without a group, one rank. Dither is refused under dp (no
+    per-rank generator plumbing), as in the reference.
+
     ``stats``: a dict to fill with ``files``, ``batches``, ``audio_s``,
     ``device_s`` (upload, dispatch and waiting for the features: the
     consumer's time between items is not in it), ``decode_s`` (the decode
@@ -277,9 +287,11 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
 
     The decode thread is joined before the generator returns, raises or is
     closed by its consumer."""
-    if dp:
-        _refuse("extract_corpus's dp=", 13)
+    if dp and cfg.dither > 0:
+        raise ValueError("dp=True has no per-batch generator plumbing; "
+                         "use dither with the single-device path")
     device = features.default_device(device)
+    rank, ranks = sharding.rank_and_size() if dp else (0, 1)
     if cfg.dither > 0 and generator is None:
         raise ValueError("cfg.dither > 0 requires a generator: "
                          "extract_corpus(..., generator=torch.Generator("
@@ -312,6 +324,9 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
     def decode(i: int) -> None:
         t0 = time.perf_counter()
         batch_entries, width, rows, rate = plans[i]
+        if dp:                                  # this rank's rows
+            rows = -(-rows // ranks)
+            batch_entries = batch_entries[rank * rows: (rank + 1) * rows]
         try:
             arena, lengths = _decode_batch(batch_entries, width, rows, rate,
                                            native)
@@ -349,14 +364,23 @@ def extract_corpus(wav_dir: str, cfg: FeatureConfig, batch_size: int = 64,
                 thread = threading.Thread(target=decode, args=(i + 1,),
                                           name=DECODE_THREAD, daemon=True)
                 thread.start()
-            true_samples += int(lengths.sum())
-            padded_samples += arena.numel()
-            audio_seconds += float(lengths.sum()) / cfg.sample_rate
-            shapes.add(tuple(arena.shape))
             t0 = time.perf_counter()
             x = arena.to(device, non_blocking=True)
             lx = torch.from_numpy(lengths).to(device, non_blocking=True)
             res = features.extract(x, lx, cfg, generator=generator)
+            if dp:                              # every rank's rows, in order
+                feats, nf, lx = sharding._gather_rows(
+                    [res.features, res.num_frames, lx])
+                res = features.FeatureResult(feats, torch.arange(
+                    feats.shape[1], device=feats.device)[None, :]
+                    < nf[:, None], nf)
+                lengths = lx.cpu().numpy()
+            true_samples += int(lengths.sum())
+            padded_samples += len(lengths) * arena.shape[-1]
+            audio_seconds += float(lengths.sum()) / cfg.sample_rate
+            shapes.add((len(lengths), arena.shape[-1]))
+            if rank > 0:
+                continue
             rows = _rows(res, batch_entries)
             if ivector is not None:
                 ivb = ivmod.utterance_ivector(
@@ -482,9 +506,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fmllr-min-count", type=float, default=500.0,
                    help="frames below which a speaker keeps the identity "
                         "transform (Kaldi --fmllr-min-count)")
-    p.add_argument("--dp", default=None, nargs="?", const=True,
-                   help="not ported yet: ROADMAP.md queue 1, item 13")
+    p.add_argument("--dp", action="store_true",
+                   help="split every batch's rows over the ranks of the "
+                        "process group torchrun describes (one rank "
+                        "without torchrun); rank 0 writes the outputs")
     return p
+
+
+def _join_torchrun(device: torch.device) -> bool:
+    """Join the process group that torchrun's environment describes
+    (``env://``), when it names one and none is initialised; each rank on
+    card ``LOCAL_RANK`` when every local rank has a card of its own.
+    Returns whether this call initialised the group."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                               os.environ["WORLD_SIZE"]))
+    backend = sharding.backend_for(device, local)
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend)
+    return True
 
 
 def _estimate_fmllr(ubm: ivmod.DiagUbm, rows: list, batch: int,
@@ -524,14 +566,21 @@ def _estimate_fmllr(ubm: ivmod.DiagUbm, rows: list, batch: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.dp is not None:
-        _refuse("--dp", 13)
+    device = cli.device_of(args.device)
+    joined = args.dp and _join_torchrun(device)
+    try:
+        return _main(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(args, device: torch.device) -> int:
     cfg = cli.parse_overrides(PRESETS[args.preset], args.set)
     if args.fused:
         cfg = dataclasses.replace(cfg, use_pallas=True, gemm_dft=True,
                                   fused_framing=True,
                                   matmul_precision="bf16x3")
-    device = cli.device_of(args.device)
     utt2spk = _read_utt2spk(args.utt2spk) if args.utt2spk else None
     if utt2spk and not all(
             p.endswith(".ark") for p in (args.global_cmvn, args.apply_cmvn)
@@ -580,7 +629,7 @@ def main(argv=None) -> int:
         for key, feats in extract_corpus(
                 args.wav_dir, cfg, args.batch, stats=stats,
                 segments=args.segments, bucket_grid=args.bucket_grid,
-                resample=args.resample, ivector=extractor,
+                resample=args.resample, dp=args.dp, ivector=extractor,
                 ivectors=ivecs if extractor else None, device=device):
             # segments mode yields utterance ids; whole-file mode paths
             rel = key if args.segments \
@@ -609,6 +658,8 @@ def main(argv=None) -> int:
                                    feats))
             out[rel] = feats
         passes.append(time.perf_counter() - t0)
+    if args.dp and sharding.rank_and_size()[0] > 0:
+        return 0                        # rank 0 writes the outputs
     if cmvn_acc is not None:
         if utt2spk:
             feats_io.write_kaldi_ark(
