@@ -2710,11 +2710,14 @@ def main() -> int:
             print("  ptxas:", line.strip())
     for n_mels in (26, 40, 80, 128):
         for prec in PRECISIONS:
-            smem, blocks = signal.mma_resources(dataclasses.replace(
-                MFCC13_HTK, n_mels=n_mels, matmul_precision=prec))
+            smem, blocks, regs, spill = signal.mma_resources(
+                dataclasses.replace(MFCC13_HTK, n_mels=n_mels,
+                                    matmul_precision=prec))
             print(f"  tensor-core signal kernel (K1 and K3) for "
                   f"{n_mels}-mel at {prec}: {smem} B dynamic shared "
-                  f"memory per block, {blocks} blocks per SM")
+                  f"memory per block, {blocks} blocks per SM, {regs} "
+                  f"registers a thread at launch, {spill} B of local "
+                  f"memory (spills) a thread")
             check(blocks >= 1, f"tensor-core kernel at {prec} fits no "
                   f"block on an SM")
     for name, cfg in (("mfcc13", MFCC13_HTK), ("fbank80", FBANK80),
@@ -2773,8 +2776,8 @@ def main() -> int:
     for prec in PRECISIONS:
         for name, base in variants.items():
             cfg = dataclasses.replace(base, matmul_precision=prec)
-            for n_frames in (1, tf - 1, tf, tf + 1, tm - 1, tm, tm + 1, 127,
-                             129, 3000):
+            for n_frames in (1, tf - 1, tf, tf + 1, tm - 1, tm, tm + 1,
+                             2 * tm + 1, 3000):
                 for batch in (1, 3):
                     # 3 samples short of the last frame: the zero reads past M
                     M = (n_frames - 1) * cfg.hop_length + cfg.frame_length - 3
@@ -3487,7 +3490,7 @@ def main() -> int:
 
     for where, (share, window) in flips.items():
         print(f"frames past TOL_TWIN, {where}: largest share {share:.4%}, "
-              f"most in one window of {signal.MMA_TILE_FRAMES} frames "
+              f"most in one window of {tolerance.FLIP_WINDOW} frames "
               f"{window} (the default check allows "
               f"{tolerance.FLIP_FRAMES})")
     for name, count in path_launches.items():

@@ -39,8 +39,12 @@ CFGS = {
     "magnitude": dataclasses.replace(C.MFCC13_HTK, spectrum="magnitude"),
     "lifter": dataclasses.replace(C.MFCC13_HTK, lifter=22),
     "log10": dataclasses.replace(C.MFCC13_HTK, log="log10"),
-    # a hop that divides nothing, and 1024 DFT columns (two column passes)
+    # a hop that divides nothing (not a multiple of 8: no ldmatrix), an odd
+    # one, and 1024 DFT columns (eight chunks)
     "hop100": C.FeatureConfig(hop_length=100, frame_length=300),
+    "hop101": C.FeatureConfig(hop_length=101, frame_length=300),
+    # a frame_length not a multiple of 16: the last 16-deep step is partial
+    "fl403": C.FeatureConfig(frame_length=403, n_fft=512),
     "fl1024": C.FeatureConfig(frame_length=1024, hop_length=256,
                               n_fft=1024, n_mels=40),
     # past one slab of 128 mel bands: MFCCs, and a log-mel
@@ -75,7 +79,7 @@ def _frames(buf, n_frames, cfg):
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("batch", [1, 3])
 @pytest.mark.parametrize("n_frames", [1, HALF - 1, HALF, HALF + 1, TM - 1,
-                                      TM + 1, 129])
+                                      TM + 1, 2 * TM + 1])
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_kernel_matches_twin(cuda, name, n_frames, batch, precision):
     cfg = dataclasses.replace(CFGS[name], matmul_precision=precision)
@@ -101,6 +105,21 @@ def test_frame_bits_do_not_depend_on_position(cuda, precision):
         part = signal.signal_features(
             buf[:, shift * cfg.hop_length:].contiguous(), 200 - shift, cfg)
         assert torch.equal(whole[:, shift:], part), shift
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("n_frames", [1, 3, 10])
+def test_tiles_cross_rows_of_few_frames(cuda, n_frames, precision):
+    """Many rows of a few frames each (a streaming step's shape), M not a
+    multiple of 4: each tile stages a span in every row it touches."""
+    cfg = dataclasses.replace(C.MFCC13_HTK, matmul_precision=precision)
+    buf = _buf(cfg, n_frames, 300, cuda, seed=4)
+    assert buf.shape[1] % 4
+    got = signal.signal_features(buf, n_frames, cfg)
+    want = signal.signal_features_reference(buf, n_frames, cfg)
+    torch.cuda.synchronize()
+    tolerance.compare_to_twin(got, want, _frames(buf, n_frames, cfg), cfg,
+                              what=f"{n_frames} a row")
 
 
 @pytest.mark.parametrize("name", ["mfcc13", "whisper80"])

@@ -329,7 +329,7 @@ def test_default_check_counts_frames(fault):
     """At default the flip bound is loose, so the check counts frames: a
     sound one-pass computation in another sum order (the numpy oracle)
     passes, while the bf16x3 result held as the default one (a pass swap),
-    or one window of MMA_TILE_FRAMES frames moved by half the tolerance,
+    or one window of FLIP_WINDOW frames moved by half the tolerance,
     stays inside the bound and fails on the count."""
     cfg, buf, frames = _default_case()
     want = signal.signal_features_reference(buf, 200, cfg)
@@ -342,7 +342,7 @@ def test_default_check_counts_frames(fault):
     else:
         tol = tolerance.twin_tolerance(want, fr, cfg)
         got = want.double().clone()
-        tm = signal.MMA_TILE_FRAMES
+        tm = tolerance.FLIP_WINDOW
         got[1, 64: 64 + tm] += 0.5 * tol[1, 64: 64 + tm]
     if fault == "none":
         agreement = tolerance.compare_to_twin(got, want, fr, cfg)
@@ -355,9 +355,9 @@ def test_default_check_counts_frames(fault):
 
 
 def test_frames_past_windows():
-    """Frames are counted in windows of MMA_TILE_FRAMES rows, the last one
+    """Frames are counted in windows of FLIP_WINDOW rows, the last one
     partial; a frame counts once however many of its outputs are past."""
-    tm = signal.MMA_TILE_FRAMES
+    tm = tolerance.FLIP_WINDOW
     err = torch.zeros(2 * tm + 5, 3)
     err[[0, 1, tm + 3], :] = 1.0
     err[2 * tm + 1, 0] = err[2 * tm + 4, 2] = 1.0
@@ -403,3 +403,125 @@ def test_bf16x3_extract_matches_tpufeat_bf16x3():
     got = features.extract(sig, cfg=_port(jcfg), device="cpu").features
     assert np.abs(got.numpy() - want).max() <= 1e-4 * max(
         1.0, np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# the wgmma kernel's host side: packed constants and the tile plan
+# ---------------------------------------------------------------------------
+
+PACKED = {
+    "mfcc13": J_MFCC13,
+    "whisper80": J_WHISPER80,
+    "magnitude_lifter": CFGS["magnitude_lifter"],
+    # frame_length 403: not a multiple of 16, so CS's last slice is partial
+    "fl403": JConfig(frame_length=403, n_fft=512),
+    # 200 bands: two slabs of MMA_MEL_SLAB
+    "mel200": JConfig(n_mels=200, n_mfcc=0),
+}
+
+
+def _unswizzle(blocks: torch.Tensor) -> torch.Tensor:
+    """[..., n * 64] packed blocks -> [..., n, 64] by the swizzle's byte
+    rule: element (n, k) sits at n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8."""
+    rows = blocks.shape[-1] // 64
+    n = torch.arange(rows)[:, None]
+    k = torch.arange(64)[None, :]
+    at = (n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
+    return blocks[..., at].reshape(*blocks.shape[:-1], rows, 64)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("name", sorted(PACKED))
+def test_mma_blocks_unswizzle_to_mma_constants(name, precision):
+    """Every packed block of CS and FB (signal.mma_blocks), unswizzled by
+    the byte rule, is its slice of the plain pieces of
+    signal.mma_constants: a CS block (chunk c, slice j, half h, piece q)
+    holds CS[q][64j + k, 128c + 64h + n] at (n, k), the halves of a piece
+    side by side; an FB block (slab s,
+    block d, piece q) holds fb[q][64d + k, 128s + n], zeros past n_mels."""
+    cfg = _port(PACKED[name], matmul_precision=precision)
+    cs, fb, dct = signal.mma_constants(cfg)
+    cs_blocks, fb_blocks, dct_blocks = signal.mma_blocks(cfg)
+    n_pieces = signal.PIECES[signal.passes(cfg)]
+    depth, cols = cs[0].shape
+    assert depth % signal.MMA_DEPTH == 0 and cols % signal.MMA_COLS == 0
+    assert cs_blocks.dtype == fb_blocks.dtype == torch.bfloat16
+    assert cs_blocks.shape == (cols // signal.MMA_COLS,
+                               depth // signal.MMA_DEPTH, n_pieces, 2,
+                               64 * 64)
+    got = _unswizzle(cs_blocks)               # [c, j, q, h, n, k]
+    want = torch.stack(cs).reshape(n_pieces, depth // 64, 64,
+                                   cols // 128, 2, 64)   # [q, j, k, c, h, n]
+    assert torch.equal(got, want.permute(3, 1, 0, 4, 5, 2))
+    slabs = -(-cfg.n_mels // signal.MMA_MEL_SLAB)
+    assert fb_blocks.shape == (slabs, cols // 64, n_pieces, 128 * 64)
+    got = _unswizzle(fb_blocks)               # [s, d, q, n, k]
+    for q in range(n_pieces):
+        plain = torch.zeros(cols, slabs * 128, dtype=torch.bfloat16)
+        plain[:, : fb[q].shape[1]] = fb[q]
+        for s in range(slabs):
+            for d in range(cols // 64):
+                assert torch.equal(
+                    got[s, d, q],
+                    plain[64 * d: 64 * d + 64, 128 * s: 128 * s + 128].T)
+    assert (dct_blocks is None) == (dct is None)
+    assert all(torch.equal(a, b) for a, b in zip(dct_blocks or (), dct or ()))
+
+
+# (batch, short of the last frame's end, n_frames, hop, frame_length,
+# passes): the dual's hop 160; hop 100, not a multiple of 8; rows of a few
+# frames, so tiles cross rows of buf (a streaming step's 10 a row, and 1);
+# frames past M; K3's rows (hop = frame_length, 403 not a multiple of 16)
+# as spans at one pass and frame by frame at three and six (but for a last
+# tile of 44 rows, whose span fits)
+PLANS = {
+    "hop160": (3, 5, 200, 160, 400, 3),
+    "hop100": (2, 0, 150, 100, 300, 6),
+    "stream_rows": (40, 0, 10, 160, 400, 3),
+    "one_frame_rows": (300, 0, 1, 160, 400, 1),
+    "past_m": (2, 2000, 140, 160, 400, 1),
+    "k3_spans": (1, 0, 300, 403, 403, 1),
+    "k3_frames": (1, 0, 300, 403, 403, 3),
+    "k3_frames_f32": (1, 0, 256, 400, 400, 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_tile_plan_stages_every_frame(name):
+    """The kernel's tile plan (signal.tile_plan, staged_rows): for every
+    tile, which samples it stages and where each frame starts in the
+    planes give back every frame of the twin's framing (zeros past M), the
+    columns at or past frame_length zero; spans start at multiples of 8
+    samples, one after the other, and fit beside the last frame's 16-deep
+    step, or the tile goes frame by frame."""
+    batch, short, n_frames, hop, fl, n_passes = PLANS[name]
+    M = (n_frames - 1) * hop + fl - short
+    buf = (np.random.default_rng(20).standard_normal((batch, M))
+           .astype(np.float32))
+    frames = signal.framing.frames_from_buffer(
+        torch.from_numpy(buf), n_frames, fl, hop).reshape(-1, fl).numpy()
+    tm = signal.MMA_TILE_FRAMES
+    tiles = -(-batch * n_frames // tm)
+    modes = set()
+    for tile in range(tiles):
+        plan = signal.tile_plan(batch, M, n_frames, hop, fl, tile, n_passes)
+        assert plan.valid == min(tm, batch * n_frames - tile * tm)
+        rows = signal.staged_rows(buf, n_frames, hop, fl, tile, n_passes)
+        assert rows.shape == (tm, -(-fl // 16) * 16)
+        np.testing.assert_array_equal(
+            rows[: plan.valid, :fl], frames[tile * tm: tile * tm + plan.valid])
+        assert not rows[:, fl:].any()
+        modes.add("frames" if plan.window else "spans")
+        if plan.window:
+            assert plan.window % signal.MMA_DEPTH == 0
+            assert tm * (plan.window + 8) <= signal.SPAN_SAMPLES[n_passes]
+            continue
+        offsets = [o for _, _, o, _ in plan.spans]
+        ends = [o + n for _, _, o, n in plan.spans]
+        assert offsets == [0] + ends[:-1]
+        assert all(o % 8 == 0 for o in offsets)
+        assert ends[-1] + 16 <= signal.SPAN_SAMPLES[n_passes]
+        if hop % 8 == 0:
+            assert (plan.bases % 8 == 0).all()
+    want = {"k3_frames": {"frames", "spans"}, "k3_frames_f32": {"frames"}}
+    assert modes == want.get(name, {"spans"})

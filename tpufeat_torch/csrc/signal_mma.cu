@@ -1,19 +1,18 @@
 // The spectro-feature kernels for Hopper (sm_90a), on bf16 tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 sums), at every matmul_precision:
-// "highest" as six bf16 passes per product, "bf16x3" as three, "default"
-// as one.
+// with f32 sums, at every matmul_precision: "highest" as six bf16 passes
+// per product, "bf16x3" as three, "default" as one.
 //
 // Replaces the TPU kernels of tpufeat/pallas/fused.py:
 //   - fused.py:669 signal_features (K1/K2): the v4 hop-split body
 //     _signal_kernel :401 and the v5 phase-packed body _phase_signal_kernel
-//     :598, as signal_mma_kernel below. A block gathers its frames straight
-//     out of the signal.
+//     :598, as signal_mma_kernel below (wgmma). A block stages its frames'
+//     samples straight out of the signal.
 //   - fused.py:353 dft_mel_log_dct (K3): the body _full_kernel :289. The
 //     SAME kernel and entry point, launched over rows [R, fl] as the buffer
 //     [1, R*fl] with hop = fl, with the DFT matrix without the kaldi fold.
 //   - fused.py:336 mel_log_dct (K4): the body _tail_kernel :282, as
-//     tail_mma_kernel below, which shares the split, the passes and the log
-//     with the signal kernel.
+//     tail_mma_kernel below (mma.sync), which shares the split, the passes
+//     and the log with the signal kernel.
 //
 // The function, for each frame f = buf[b, t*hop : t*hop + fl] (zeros past
 // M), as the TPU computes it (fused.py:87-143, 238-250):
@@ -26,59 +25,82 @@
 // P = 6 for "highest" (XLA's f32 emulation on the TPU, fused.py:89-91),
 // the first three for "bf16x3" (mid is the two-way split's lo), the first
 // for "default". Each bf16 product is exact in f32 and summed in f32. The
-// constants arrive split (kernels/signal.py mma_constants). At P = 1 and 3
-// the signal is split once per element as it is staged and z*z once per
-// element as it is stored for the mel product; at P = 6 both are staged as
-// f32 and split into their three pieces as each MMA fragment is built (the
-// three pieces staged would take 135 KB of shared memory, one block per
-// SM). The signal kernel splits the log-mel once per term of its DCT
-// (FFMA).
+// constants arrive split and packed (kernels/signal.py mma_blocks).
 //
-// The signal kernel's tile. A block takes TM = 64 consecutive frames of the
-// whole call: global frame g = b * n_frames + t, whatever utterance or
+// The signal kernel. A block takes tiles of TM = 128 consecutive frames of
+// the whole call: global frame g = b * n_frames + t, whatever utterance or
 // stream it belongs to, so a streaming step of 10 frames a stream wastes
-// nothing and only the call's last tile is partial. For each chunk of
-// NT = 128 DFT columns:
-//   1. z[64, 128] accumulates in registers over KC = 32-deep slices: the
-//      frames' slice (gathered per frame from buf into registers a slice
-//      ahead) and the CS slice (its pieces, cp.async) double-buffered in
-//      shared memory; 8 warps of 32 rows x 32 columns. The P products of a
-//      slice run into one accumulator per tile, pass by pass over a pair of
-//      tiles' four accumulators;
-//   2. z*z (or |X|) goes to a shared tile, and mel[64, nm] += tile @
-//      fb[chunk, :] on the tensor cores, fb's slices streamed through the
-//      same ring; mel stays in registers across chunks.
-// Then the log, and the DCT or the log-mel, for the tile's valid frames.
-// z never exists whole, and nothing but the signal, the constants and the
-// features touches device memory.
+// nothing and only the call's last tile is partial. The grid is persistent
+// (one block per SM walks the tiles). A block is two consumer warpgroups of
+// 64 frames each and one producer thread, of a third warpgroup that gives
+// its registers up with setmaxnreg.
+//   1. The signal is staged once per tile. The tile's frames cover one span
+//      of samples in each row of buf they touch (the dual: one or two rows;
+//      a streaming step: about 13 rows of 10 frames), and the consumers copy
+//      each span out of buf once (16-byte loads, eight in flight a thread),
+//      zeros past M, into shared memory as the bf16 pieces the passes read
+//      (hi at one pass; hi and mid at three; at six the f32 samples, split
+//      into hi, mid, lo as each fragment is built, since three pieces would
+//      not fit beside the ring), 16 bytes of padding after every 128 so
+//      that frames a hop apart spread over the banks. Frame r of the tile
+//      reads sample k at piece[base(r) + k]. Where the spans do not
+//      fit (K3's rows, which do not overlap, at three and six passes, or a
+//      hop far past the frame), the tile's frames are staged frame by frame
+//      in windows of the depth instead, again for every chunk of z.
+//   2. CS and FB stream through a ring of slots in shared memory: the
+//      producer brings each slice with bulk copies (cp.async.bulk,
+//      completion on a "full" mbarrier; each consumer warp frees a slot on
+//      an "empty" one), so the depth loop has no block barrier. Both arrive
+//      packed on the host in the 128-byte-swizzled K-major layout that wgmma
+//      reads: a CS slice is 64 deep by 128 columns, an FB slice 64 of z's
+//      columns deep by the slab's bands. Each slice feeds all 128 frames.
+//   3. z[64, 128] of each warpgroup comes from wgmma (m64n128k16, one per
+//      16-deep step and pass; m64n64k16 for a chunk of 64 columns) with A
+//      from registers: fragments loaded from the staged pieces (ldmatrix
+//      where every frame starts 16-byte aligned, hop % 8 == 0; scalar
+//      shared loads otherwise), the depth columns at or past fl set to zero
+//      (they are the next frame's samples, CS's rows there are zero, and
+//      0 * Inf is NaN), against CS's pieces. Each step's P passes run in
+//      the pass order into one accumulator. The steps go in groups, each
+//      group's fragments built while the group before runs; no branch
+//      skips a wgmma inside a group (ptxas would serialize them all).
+//   4. z*z (or |X|) never leaves the registers: z's accumulator layout is
+//      the A fragment layout of the mel product, so each half of the chunk
+//      is squared and split there and fed as wgmma's register A operand
+//      (one m64nNk16 for the slab's N = 32 MI bands) against FB's slice;
+//      the mel accumulators live across the chunks.
+//   5. The log, into a log-mel tile in shared memory over the staged
+//      signal, then the DCT (FFMA, every term at P passes in the pass order,
+//      the bands in order) or the log-mel, for the tile's valid frames.
 // CS's columns are ordered in pairs (Re_k, Im_k), pair 0 holding Re_0 and
-// Re_{nb-1}, so a bin's Re and Im land in the same thread of an MMA
-// accumulator and |X| is rebuilt in registers; fb's rows follow (for
-// magnitude, pair k's row is fb[k] and a zero row). Columns past n_fft
-// (to a multiple of 16) are zero and skipped per 8-column tile.
-// More than SLAB = 128 mel bands run in slabs of 128: the tile's whole
-// body (DFT, spectrum, mel product, log) once per slab, the DCT summing
-// each slab's bands into the output in the order of a single pass.
+// Re_{nb-1}, so a bin's Re and Im land in the same thread of an accumulator
+// and |X| is rebuilt in registers; fb's rows follow (for magnitude, pair
+// k's row is fb[k] and a zero row). Columns past n_fft (to a multiple of
+// 64) are zero. More than SLAB = 128 mel bands run in slabs of 128: the
+// tile's whole body once per slab, the DCT summing each slab's bands into
+// the output in the order of a single pass.
 //
-// Bits: TM, the chunking and the order of every sum are fixed whatever
-// the call's shape, with no split-K, and an MMA row depends only on its
-// own A row, so a frame's features depend neither on its place in the
-// tile, the batch or the call, nor on its neighbours. A frame reads no
-// sample past its own end (K3's rows may be followed by Inf or NaN).
+// Bits: the tile, the chunking and the order of every sum are fixed
+// whatever the call's shape, with no split-K, and an MMA row depends only
+// on its own A row, so a frame's features depend neither on its place in
+// the tile, the batch or the call, nor on its neighbours, nor on how its
+// samples were staged. A frame reads no sample past its own end.
 //
 // What bounds the signal kernel on an H100: tensor operations. The dual
 // Whisper-80 + MFCC-13 call at B = 128 x 30 s is 3.15e11 FLOP of DFT and
 // mel products, so P passes are P x 3.15e11 bf16 tensor FLOP: 1.91 ms at
 // the published 989 TFLOP/s dense peak for "highest", 0.96 ms for bf16x3;
 // K3 on the MFCC-13 batch's 383,744 rows is P x 1.67e11. Memory is not the
-// bound: about 0.6 GB for the dual, 0.18 ms at 3.35 TB/s. What the design
-// does about that bound: the products run on the tensor cores, all passes
-// share one staged tile and one accumulator, and every intermediate stays
-// on the SM; "highest" stages f32 so that its three pieces fit two blocks
-// per SM (107,520 B of shared memory). It reaches about a fifth of the
-// bound (PERF.md); measured there, neither a 128-frame tile nor a third CS
-// slice in flight helps. What it leaves: mma.sync rather than wgmma, a
-// barrier per 32-deep slice, and the frames re-gathered per column chunk.
+// bound: about 0.6 GB for the dual, 0.18 ms at 3.35 TB/s. The mma.sync
+// design before this one stayed at a fifth of the bound because it re-read
+// the frames for every chunk of z and the constants for every 64 frames
+// through L2, with a block barrier per 32-deep slice (PERF.md); this one
+// reads each span once, each constant slice once per 128 frames, and waits
+// only on the ring's barriers. What it leaves (PERF.md): the staging, the
+// mel product's drain per half and the tail run while the warpgroup's
+// tensor work waits. A cluster of two sharing each slice by multicast
+// halved the constants' L2 reads but ran 1.5-1.8x slower, both blocks held
+// to every slot, so the design keeps one block per slice.
 //
 // K4's tile is 64 consecutive spectrum rows, one contiguous span of 64 * nb
 // floats that one bulk copy (cp.async.bulk, completion on an mbarrier)
@@ -113,31 +135,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TM = 64;         // frames per block: kernels/signal.py
-                               // MMA_TILE_FRAMES
-constexpr int THREADS = TM * 4;  // 8 warps: 2 row groups x 4 column groups
-constexpr int STAGES = 2;      // constant slices in flight
-constexpr int NT = 128;        // DFT columns per chunk: MMA_COLS
-constexpr int KC = 32;         // depth of a staged slice: MMA_DEPTH
-constexpr int SLAB = 128;      // mel bands per pass, 16 tiles of 8, 4 per
-                               // column group: MMA_MEL_SLAB
-constexpr int LDA = KC + 8;    // row stride of a frame slice, bf16 or f32
-                               // (40 f32: rows 8 banks apart)
-constexpr int LDB = NT + 8;    // bf16 row stride of a constant slice
-constexpr int LDS = NT + 8;    // row stride of the spectrum tile, bf16 or
-                               // f32
-constexpr int LDM = SLAB + 4;  // f32 row stride of the log-mel tile
-
-constexpr size_t A_TILE = static_cast<size_t>(TM) * LDA;   // elements
-constexpr size_t B_TILE = static_cast<size_t>(KC) * LDB;
-constexpr size_t S_TILE = static_cast<size_t>(TM) * LDS;
-// both stages of the frames: [2][hi, lo][TM][LDA] bf16 or [2][TM][LDA] f32
-constexpr size_t A_BYTES = sizeof(float) * 2 * A_TILE;
-// the spectrum tile: [hi, lo][TM][LDS] bf16 or [TM][LDS] f32
-constexpr size_t S_BYTES = sizeof(float) * S_TILE;
-static_assert(sizeof(float) * TM * LDM <= S_BYTES,
-              "the log-mel tile reuses the spectrum tile");
-static_assert(TM * KC == THREADS * 8, "each thread stages 8 samples");
+constexpr int THREADS = 256;   // K4's block, and the signal kernel's
+                               // consumer threads
+constexpr int SLAB = 128;      // mel bands per pass: MMA_MEL_SLAB
 
 // bf16 pieces of an operand at P passes: hi; hi, lo; hi, mid, lo
 __host__ __device__ constexpr int pieces(int P) {
@@ -153,24 +153,8 @@ __host__ __device__ constexpr int b_piece(int p) {
   return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0;
 }
 
-// Constant slices in the ring, per stage: (hi, lo) or (hi, mid, lo)
-template <int P>
-__host__ __device__ constexpr int ring_pieces() {
-  return P == 6 ? 3 : 2;
-}
-
-// frames, the constant ring, the spectrum (the log-mel tile over it)
-template <int P>
-constexpr size_t smem_bytes() {
-  return A_BYTES + sizeof(bf16) * ring_pieces<P>() * STAGES * B_TILE +
-         S_BYTES;
-}
-
-// A constant's pieces (hi, mid, lo; bf16x3's (hi, lo) are the first two,
-// default's hi the first), and the DCT's as f32; unused ones are null.
-struct Pieces {
-  const bf16* p[3];
-};
+// The DCT's pieces as f32 (hi, mid, lo; bf16x3's (hi, lo) are the first
+// two, default's hi the first); unused ones are null.
 struct FPieces {
   const float* p[3];
 };
@@ -190,21 +174,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
 // d += a (16 x 16, row-major) . b (16 x 8, column-major), bf16 in, f32
 // sum. Registers only, so not volatile: the compiler may schedule it
 // between the fragment loads.
@@ -215,22 +184,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's cp.async groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
@@ -286,232 +239,6 @@ __device__ __forceinline__ void frag_f32(uint32_t (&a)[NP][4],
   }
 }
 
-// Rows [r0, r0 + KC) x columns [c0, c0 + width) of a bf16 matrix (row
-// stride ld, width a multiple of 8) into a KC x LDB stage, by cp.async.
-__device__ __forceinline__ void load_slice(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int ld, int r0, int c0,
-                                           int width) {
-  const int segs = width / 8;
-  for (int i = threadIdx.x; i < KC * segs; i += THREADS) {
-    const int r = i / segs, s = i % segs;
-    cp_async16(dst + r * LDB + s * 8,
-               src + static_cast<size_t>(r0 + r) * ld + c0 + s * 8);
-  }
-}
-
-// Stage `slice` of a product's constant (its pieces) into its ring slot,
-// rows r0 + slice * KC, when slice < n; one cp.async group either way, so
-// that the groups count slices.
-template <int P>
-__device__ __forceinline__ void load_pieces(bf16* ring, const Pieces& src,
-                                            int ld, int slice, int n, int r0,
-                                            int c0, int width) {
-  if (slice < n) {
-    bf16* dst = ring + ring_pieces<P>() * (slice % STAGES) * B_TILE;
-#pragma unroll
-    for (int i = 0; i < pieces(P); ++i)
-      load_slice(dst + i * B_TILE, src.p[i], ld, r0 + slice * KC, c0, width);
-  }
-  cp_async_commit();
-}
-
-// The thread's 8 samples k .. k + 7 of its frame, zeros at or past lim
-// (the frame's end or the end of its row): nothing past a frame is read.
-__device__ __forceinline__ void load_frames(float (&v)[8],
-                                            const float* __restrict__ frame,
-                                            int lim, int k) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = k + i < lim ? __ldg(frame + k + i) : 0.0f;
-}
-
-// The 8 samples to row `row`, columns col .. col + 7, of a frame stage:
-// split into their pieces (P 1, 3), or as they are (P 6).
-template <int P>
-__device__ __forceinline__ void store_frames(const float (&v)[8],
-                                             unsigned char* stage, int row,
-                                             int col) {
-  if constexpr (P == 6) {
-    float* d = reinterpret_cast<float*>(stage) + row * LDA + col;
-    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    constexpr int NP = pieces(P);
-    uint32_t w[4][NP];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split_pair<NP>(v[2 * q], v[2 * q + 1], w[q]);
-    bf16* d = reinterpret_cast<bf16*>(stage) + row * LDA + col;
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      *reinterpret_cast<uint4*>(d + i * A_TILE) =
-          make_uint4(w[0][i], w[1][i], w[2][i], w[3][i]);
-  }
-}
-
-// z += frames' slice . CS slice over KS (1 or 2) 16-deep steps: the warp's
-// 32 rows x `ntiles` (1-4; FULL: 4) tiles of 8 columns. For each pair of
-// column tiles the products run pass by pass over its 4 accumulators, so
-// each accumulator's MMAs, in the pass order, have 3 others between them
-// instead of none, with no more fragments live than one pair's.
-template <int P, int KS, bool FULL>
-__device__ __forceinline__ void dft_slice(float (&z)[2][4][4],
-                                          const unsigned char* a_stage,
-                                          const bf16* b_stage, int wm,
-                                          int wn, int ntiles) {
-  constexpr int NP = pieces(P);
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int kk = ks * 16;
-    uint32_t a[2][NP][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int row = wm * 32 + mi * 16;
-      if constexpr (P == 6) {
-        frag_f32<NP>(a[mi],
-                     reinterpret_cast<const float*>(a_stage) + row * LDA + kk,
-                     LDA);
-      } else {
-        const bf16* ah = reinterpret_cast<const bf16*>(a_stage) +
-                         (row + (lane & 15)) * LDA + kk + (lane >> 4) * 8;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) ldsm_x4(a[mi][i], ah + i * A_TILE);
-      }
-    }
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      if (!FULL && 2 * np >= ntiles) break;
-      const int off = (kk + (lane & 15)) * LDB + wn * 32 + np * 16 +
-                      (lane >> 4) * 8;
-      uint32_t b[NP][4];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) ldsm_x4_t(b[i], b_stage + i * B_TILE + off);
-#pragma unroll
-      for (int pass = 0; pass < P; ++pass)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (!FULL && 2 * np + h >= ntiles) break;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            mma(z[mi][2 * np + h], a[mi][a_piece(pass)],
-                b[b_piece(pass)][2 * h], b[b_piece(pass)][2 * h + 1]);
-        }
-    }
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void dft_slice_any(float (&z)[2][4][4],
-                                              const unsigned char* a_stage,
-                                              const bf16* b_stage,
-                                              int ksteps, int wm, int wn,
-                                              int ntiles) {
-  if (ntiles == 4) {
-    if (ksteps == 2)
-      dft_slice<P, 2, true>(z, a_stage, b_stage, wm, wn, ntiles);
-    else
-      dft_slice<P, 1, true>(z, a_stage, b_stage, wm, wn, ntiles);
-  } else if (ntiles > 0) {
-    if (ksteps == 2)
-      dft_slice<P, 2, false>(z, a_stage, b_stage, wm, wn, ntiles);
-    else
-      dft_slice<P, 1, false>(z, a_stage, b_stage, wm, wn, ntiles);
-  }
-}
-
-// The chunk's spectrum columns to the shared tile, split into their pieces
-// (P 1, 3) or as f32 (P 6): power z*z, or magnitude |X_k| in the pair's
-// first column and 0 in its second (pair 0: |Re_0| and |Re_{nb-1}|).
-template <int P>
-__device__ __forceinline__ void store_spectrum(const float (&z)[2][4][4],
-                                               unsigned char* tile,
-                                               int magnitude, int c0, int wm,
-                                               int wn, int ntiles) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj) {
-    if (nj >= ntiles) break;
-    const int col = wn * 32 + nj * 8 + 2 * tig;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mi * 16 + gid + 8 * h;
-        const float re = z[mi][nj][2 * h], im = z[mi][nj][2 * h + 1];
-        float s0, s1;
-        if (!magnitude) {
-          s0 = __fmul_rn(re, re);
-          s1 = __fmul_rn(im, im);
-        } else if (c0 + col == 0) {
-          s0 = sqrtf(__fmul_rn(re, re));
-          s1 = sqrtf(__fmul_rn(im, im));
-        } else {
-          s0 = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-          s1 = 0.0f;
-        }
-        if constexpr (P == 6) {
-          *reinterpret_cast<float2*>(reinterpret_cast<float*>(tile) +
-                                     row * LDS + col) = make_float2(s0, s1);
-        } else {
-          uint32_t w[pieces(P)];
-          split_pair<pieces(P)>(s0, s1, w);
-#pragma unroll
-          for (int i = 0; i < pieces(P); ++i)
-            *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(tile) +
-                                         i * S_TILE + row * LDS + col) = w[i];
-        }
-      }
-  }
-}
-
-// mel += spectrum tile[:, k0 : k0 + 16 * ksteps] . fb slice: the warp's 32
-// rows x mel tiles wn, wn + 4, ... (< nmt), each tile's two accumulators
-// pass by pass.
-template <int P, int MI>
-__device__ __forceinline__ void mel_slice(float (&mel)[2][MI][4],
-                                          const unsigned char* tile, int k0,
-                                          const bf16* b_stage, int ksteps,
-                                          int wm, int wn, int nmt) {
-  constexpr int NP = pieces(P);
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    if (ks >= ksteps) break;
-    const int kk = ks * 16;
-    uint32_t a[2][NP][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int row = wm * 32 + mi * 16;
-      if constexpr (P == 6) {
-        frag_f32<NP>(a[mi],
-                     reinterpret_cast<const float*>(tile) + row * LDS + k0 +
-                         kk,
-                     LDS);
-      } else {
-        const bf16* ah = reinterpret_cast<const bf16*>(tile) +
-                         (row + (lane & 15)) * LDS + k0 + kk +
-                         (lane >> 4) * 8;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) ldsm_x4(a[mi][i], ah + i * S_TILE);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      if (wn + 4 * i >= nmt) break;
-      const int off = (kk + (lane & 15)) * LDB + (wn + 4 * i) * 8;
-      uint32_t b[NP][2];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) ldsm_x2_t(b[q], b_stage + q * B_TILE + off);
-#pragma unroll
-      for (int pass = 0; pass < P; ++pass)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          mma(mel[mi][i], a[mi][a_piece(pass)], b[b_piece(pass)][0],
-              b[b_piece(pass)][1]);
-    }
-  }
-}
-
 __device__ __forceinline__ float log_value(float x, int log_kind,
                                            float log_floor) {
   if (log_kind == 1) return logf(fmaxf(x, log_floor));
@@ -519,175 +246,58 @@ __device__ __forceinline__ float log_value(float x, int log_kind,
   return x;
 }
 
-// The DCT (the lifter folded in) of the first `valid` rows of a log-mel
-// tile (row stride ldm) over its nms bands, dct rows m0 .. m0 + nms - 1,
-// to orow[f * d_out + d]: every term at P passes in the pass order, the
-// bands in order. A later slab (m0 > 0) goes on from the sum stored for
-// the slab before, so the bands are summed in order, as in one pass.
+// The DCT (the lifter folded in) of the first `valid` rows (at most
+// THREADS / 16 * DCT_ROWS) of a log-mel tile (row stride ldm) over its nms
+// bands, dct rows m0 .. m0 + nms - 1, to orow[f * d_out + d], by threads
+// 0 .. THREADS - 1: thread t takes column t % 16 (then + 16, ...) of rows
+// t / 16, t / 16 + 16, ..., every term at P passes in the pass order, the
+// bands in order. A later slab (m0 > 0) goes on from the sum stored for the
+// slab before, so the bands are summed in order, as in one pass.
+constexpr int DCT_ROWS = 8;
+
 template <int P>
 __device__ void dct_rows(const float* smel, int ldm, int nms, int m0,
                          const FPieces& dct, int d_out, int valid,
                          float* __restrict__ orow) {
   constexpr int NP = pieces(P);
-  for (int o = threadIdx.x; o < valid * d_out; o += THREADS) {
-    const int f = o / d_out, d = o % d_out;
-    const float* lr = smel + f * ldm;
-    float acc = m0 ? orow[o] : 0.0f;
+  const int f0 = threadIdx.x / 16;
+  for (int d = threadIdx.x % 16; d < d_out; d += 16) {
+    float acc[DCT_ROWS];
+#pragma unroll
+    for (int u = 0; u < DCT_ROWS; ++u) {
+      const int f = f0 + 16 * u;
+      acc[u] = m0 && f < valid ? orow[f * d_out + d] : 0.0f;
+    }
+#pragma unroll 4
     for (int m = 0; m < nms; ++m) {
-      float x[NP], w[NP];
-      split_value<NP>(lr[m], x);
+      float w[NP];
 #pragma unroll
       for (int i = 0; i < NP; ++i) w[i] = __ldg(dct.p[i] + (m0 + m) * d_out + d);
 #pragma unroll
-      for (int pass = 0; pass < P; ++pass)
-        acc = fmaf(x[a_piece(pass)], w[b_piece(pass)], acc);
+      for (int u = 0; u < DCT_ROWS; ++u) {
+        float x[NP];
+        split_value<NP>(smel[(f0 + 16 * u) * ldm + m], x);
+#pragma unroll
+        for (int pass = 0; pass < P; ++pass)
+          acc[u] = fmaf(x[a_piece(pass)], w[b_piece(pass)], acc[u]);
+      }
     }
-    orow[o] = acc;
+#pragma unroll
+    for (int u = 0; u < DCT_ROWS; ++u) {
+      const int f = f0 + 16 * u;
+      if (f < valid) orow[f * d_out + d] = acc[u];
+    }
   }
 }
 
 // The log-mel as it is: nms bands of the first `valid` rows to orow (row
-// stride nm).
+// stride nm), a row a warp at a time, by threads 0 .. THREADS - 1.
 __device__ void store_logmel(const float* smel, int ldm, int nms, int nm,
                              int valid, float* __restrict__ orow) {
-  for (int o = threadIdx.x; o < valid * nms; o += THREADS)
-    orow[(o / nms) * nm + o % nms] = smel[(o / nms) * ldm + o % nms];
+  for (int f = threadIdx.x / 32; f < valid; f += THREADS / 32)
+    for (int c = threadIdx.x % 32; c < nms; c += 32)
+      orow[f * nm + c] = smel[f * ldm + c];
 }
-
-// P passes per product (6: "highest", 3: bf16x3, 1: default); MI mel tiles
-// per warp.
-template <int P, int MI>
-__global__ void __launch_bounds__(THREADS, 2)
-signal_mma_kernel(const float* __restrict__ buf, long long M, int n_frames,
-                  long long total, int hop, int fl, Pieces cs, int nc,
-                  Pieces fb, int nm, int magnitude, int log_kind,
-                  float log_floor, FPieces dct, int d_out,
-                  float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sa = smem_raw;                  // frames, 2 stages
-  bf16* sb = reinterpret_cast<bf16*>(sa + A_BYTES);  // [STAGES][pieces][KC][LDB]
-  unsigned char* ss = reinterpret_cast<unsigned char*>(
-      sb + ring_pieces<P>() * STAGES * B_TILE);  // the spectrum tile
-  float* smel = reinterpret_cast<float*>(ss);    // [TM][LDM], over it
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const long long g0 = static_cast<long long>(blockIdx.x) * TM;
-  const int ncp = round_up(nc, NT), nc16 = round_up(nc, 16);
-  const int nmp = round_up(nm, 8);
-  const int nk = (fl + KC - 1) / KC;
-
-  // the frame this thread stages: row sf of the tile, samples skk .. + 7
-  // of each slice
-  const int sf = tid >> 2, skk = (tid & 3) * 8;
-  const float* frame = buf;
-  int lim = 0;
-  {
-    const long long g = g0 + sf;
-    if (g < total) {
-      const long long b = g / n_frames, start = (g - b * n_frames) * hop;
-      frame = buf + b * M + start;
-      lim = static_cast<int>(
-          max(0LL, min(static_cast<long long>(fl), M - start)));
-    }
-  }
-
-  const int valid = static_cast<int>(min(static_cast<long long>(TM),
-                                         total - g0));
-  // mel bands m0 .. m0 + nms - 1 (nmt tiles of 8), one slab per pass
-  for (int m0 = 0; m0 < nm; m0 += SLAB) {
-    const int nms = min(SLAB, nm - m0), nmt = round_up(nms, 8) / 8;
-    float mel[2][MI][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mel[mi][i][e] = 0.0f;
-
-    for (int c0 = 0; c0 < nc16; c0 += NT) {
-      const int ntiles = max(0, min(4, (nc16 - c0 - wn * 32) / 8));
-      float z[2][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) z[mi][nj][e] = 0.0f;
-
-      // 1. z = frames . CS over KC-deep slices: the frames double-buffered,
-      // CS in a ring of STAGES slices
-      __syncthreads();  // every warp is done with the last chunk's ring
-      for (int s = 0; s < STAGES - 1; ++s)
-        load_pieces<P>(sb, cs, ncp, s, nk, 0, c0, NT);
-      float v[8];
-      load_frames(v, frame, lim, skk);
-      for (int kc = 0; kc < nk; ++kc) {
-        unsigned char* a_stage = sa + (kc & 1) * (A_BYTES / 2);
-        const bf16* b_stage = sb + ring_pieces<P>() * (kc % STAGES) * B_TILE;
-        store_frames<P>(v, a_stage, sf, skk);
-        if (kc + 1 < nk) load_frames(v, frame, lim, (kc + 1) * KC + skk);
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        load_pieces<P>(sb, cs, ncp, kc + STAGES - 1, nk, 0, c0, NT);
-        dft_slice_any<P>(z, a_stage, b_stage,
-                         min(2, (fl - kc * KC + 15) / 16), wm, wn, ntiles);
-      }
-
-      // 2. the spectrum tile, then mel += tile . fb[c0 : c0 + cw, :]
-      __syncthreads();  // every warp is done with the DFT's ring
-      const int cw = min(NT, nc16 - c0);
-      const int ns = (cw + KC - 1) / KC;
-      for (int s = 0; s < STAGES - 1; ++s)
-        load_pieces<P>(sb, fb, nmp, s, ns, c0, m0, nmt * 8);
-      store_spectrum<P>(z, ss, magnitude, c0, wm, wn, ntiles);
-      for (int s = 0; s < ns; ++s) {
-        const bf16* b_stage = sb + ring_pieces<P>() * (s % STAGES) * B_TILE;
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        load_pieces<P>(sb, fb, nmp, s + STAGES - 1, ns, c0, m0, nmt * 8);
-        mel_slice<P, MI>(mel, ss, s * KC, b_stage,
-                         min(2, (cw - s * KC) / 16), wm, wn, nmt);
-      }
-    }
-
-    // 3. the log, to the log-mel tile (over the spectrum tile)
-    __syncthreads();
-    {
-      const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int j = wn + 4 * i;
-        if (j >= nmt) break;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = wm * 32 + mi * 16 + gid + 8 * (e >> 1);
-            const int col = j * 8 + 2 * tig + (e & 1);
-            if (col < nms)
-              smel[row * LDM + col] =
-                  log_value(mel[mi][i][e], log_kind, log_floor);
-          }
-      }
-    }
-    __syncthreads();
-
-    // 4. the DCT or the log-mel, for valid frames
-    if (dct.p[0] != nullptr)
-      dct_rows<P>(smel, LDM, nms, m0, dct, d_out, valid, out + g0 * d_out);
-    else
-      store_logmel(smel, LDM, nms, nm, valid, out + g0 * nm + m0);
-  }  // the slab
-}
-
-// ---------------------------------------------------------------------------
-// K4: the tail kernel
-// ---------------------------------------------------------------------------
-
-constexpr int TAIL_ROWS = 64;    // rows per tile
-constexpr int TAIL_SLOTS = 3;    // most tiles in the ring
-constexpr size_t TAIL_HEAD = 128;  // the slots' mbarriers, at the front
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -758,6 +368,843 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "l"(src), "r"(n), "r"(smem_addr(bar))
       : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// K1/K3: the signal kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TM = 128;          // frames per tile: kernels/signal.py
+                                 // MMA_TILE_FRAMES
+constexpr int CONSUMERS = 2;     // consumer warpgroups of TM / 2 frames
+constexpr int SIG_THREADS = (CONSUMERS + 1) * 128;
+constexpr int EMPTY_ARRIVALS = CONSUMERS * 4;  // one per consumer warp
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+// the registers at launch that setmaxnreg moves between the warpgroups
+constexpr int LAUNCH_REGS =
+    (128 * PRODUCER_REGS + CONSUMERS * 128 * CONSUMER_REGS) / SIG_THREADS;
+constexpr int NT = 128;          // DFT columns per chunk of z: MMA_COLS
+constexpr int NZ = 64;           // half a chunk (a chunk of 64 columns
+                                 // runs as one)
+constexpr int KS = 64;           // depth of a ring slice (one swizzled
+                                 // 128-byte row of bf16): MMA_DEPTH
+constexpr int MEL_N = 32;        // bands per 16 accumulator registers
+constexpr int HALF_BYTES = NZ * KS * 2;      // a piece of a CS half slice
+constexpr int PIECE_BYTES = 2 * HALF_BYTES;  // a piece of a ring slot: 128
+                                             // rows (columns or bands)
+constexpr int RING_BYTES = 6 * PIECE_BYTES;  // 96 KB
+constexpr int SPAN_BYTES = 128 * 1024;       // the staged signal, and the
+                                             // log-mel tile over it
+constexpr int META_BYTES = 2048;             // barriers, the frame table
+constexpr size_t SIG_SMEM =
+    1024 + RING_BYTES + SPAN_BYTES + META_BYTES;  // 1024: the alignment
+constexpr int LDM = SLAB + 4;    // f32 row stride of the log-mel tile
+static_assert(SIG_SMEM <= 232448, "the signal kernel's shared memory");
+static_assert(sizeof(float) * TM * LDM <= SPAN_BYTES,
+              "the log-mel tile fits over the staged signal");
+static_assert(THREADS / 16 * DCT_ROWS == TM, "dct_rows covers the tile");
+
+// The signal kernel's layout at P passes. The staged signal is one f32
+// plane (6 passes) or one bf16 plane per piece (hi; hi, mid), PLANE slots
+// each; raw sample i sits in slot(i), with 16 bytes of padding after every
+// 128, so that frames a multiple of 128 bytes apart (hop 160 as f32, 64 as
+// bf16) spread over the banks. CAP raw samples fit a plane.
+template <int P>
+struct Sig {
+  static constexpr int NP = pieces(P);     // pieces of each operand
+  static constexpr int STAGE = NP * PIECE_BYTES;
+  static constexpr int STAGES = RING_BYTES / STAGE;   // 6, 3, 2
+  static constexpr int PLANE = P == 6 ? SPAN_BYTES / 4 : SPAN_BYTES / NP / 2;
+  static constexpr int GROUP = P == 6 ? 32 : 64;      // raw samples per 128 B
+  static constexpr int CAP = PLANE / (GROUP + 16 / (P == 6 ? 4 : 2)) * GROUP;
+  // frame by frame: windows FW deep, rows FST raw samples apart
+  static constexpr int FW = (CAP / TM - 8) / KS * KS;  // 384, 192, 192
+  static constexpr int FST = FW + 8;
+  // 16-deep steps of a batch of the mel product's fragments: what the
+  // registers hold beside z and mel without spilling
+  static constexpr int MS = P == 6 ? 2 : 4;
+};
+
+template <int P>
+__device__ __forceinline__ int slot(int i) {
+  return P == 6 ? i + 4 * (i >> 5) : i + 8 * (i >> 6);
+}
+
+struct SigArgs {
+  const float* buf;
+  long long M;                   // samples per row of buf
+  long long total;               // frames of the call: B * n_frames
+  int n_frames, hop, fl;
+  const bf16* cs;                // [nc / 128][slices][NP][128 x 64]
+  int nc;                        // DFT columns, 2 * n_bins - 2
+  const bf16* fb;                // [slabs][nc / 64][NP][128 x 64]
+  int nm, magnitude, log_kind;
+  float log_floor;
+  FPieces dct;                   // all null for the log-mel
+  int d_out;
+  float* out;                    // [total, d_out]
+};
+
+// The spans of a tile: rows b0 .. b1 of buf, the first from frame t0 on,
+// each staged from its first frame's start to its last frame's end,
+// rounded up to 8 samples, one after the other: L0 samples for row b0,
+// Lfull for each row between, Llast for row b1.
+struct TileSpan {
+  long long g0, b0, b1, total;
+  int valid, t0, L0, Lfull, Llast;
+};
+
+__device__ TileSpan tile_span(const SigArgs& a, long long tile) {
+  TileSpan s;
+  s.g0 = tile * TM;
+  s.valid = static_cast<int>(min(static_cast<long long>(TM), a.total - s.g0));
+  s.b0 = s.g0 / a.n_frames;
+  s.t0 = static_cast<int>(s.g0 - s.b0 * a.n_frames);
+  const long long gl = s.g0 + s.valid - 1;
+  s.b1 = gl / a.n_frames;
+  const int tl = static_cast<int>(gl - s.b1 * a.n_frames);
+  const int last = s.b1 == s.b0 ? tl : a.n_frames - 1;
+  s.L0 = round_up((last - s.t0) * a.hop + a.fl, 8);
+  s.Lfull = s.b1 - s.b0 > 1 ? round_up((a.n_frames - 1) * a.hop + a.fl, 8)
+                            : 0;   // only rows of fewer than TM frames
+  s.Llast = s.b1 == s.b0 ? s.L0 : round_up(tl * a.hop + a.fl, 8);
+  s.total = s.b1 == s.b0 ? s.L0
+                         : s.L0 + (s.b1 - s.b0 - 1) * s.Lfull + s.Llast;
+  return s;
+}
+
+// Where tile row r's frame starts in the staged spans (rows past the
+// tile's frames read frame 0's samples; their outputs are not stored).
+__device__ int span_base(const SigArgs& a, const TileSpan& s, int r) {
+  if (r >= s.valid) return 0;
+  const long long g = s.g0 + r;
+  const long long b = g / a.n_frames;
+  const int t = static_cast<int>(g - b * a.n_frames);
+  return b == s.b0 ? (t - s.t0) * a.hop
+                   : s.L0 + static_cast<int>(b - s.b0 - 1) * s.Lfull +
+                         t * a.hop;
+}
+
+// Raw sample i of the staged planes: its pieces (P 1, 3), or as it is
+// (P 6).
+template <int P>
+__device__ __forceinline__ void put_sample(unsigned char* span, int i,
+                                           float x) {
+  if constexpr (P == 6) {
+    reinterpret_cast<float*>(span)[slot<P>(i)] = x;
+  } else {
+    bf16* p = reinterpret_cast<bf16*>(span) + slot<P>(i);
+    const bf16 hi = __float2bfloat16_rn(x);
+    p[0] = hi;
+    if constexpr (P == 3)
+      p[Sig<P>::PLANE] = __float2bfloat16_rn(x - __bfloat162float(hi));
+  }
+}
+
+// Raw samples i and i + 1 (i even: one slot pair) of the staged planes.
+template <int P>
+__device__ __forceinline__ void put_pair(unsigned char* span, int i, float x,
+                                         float y) {
+  if constexpr (P == 6) {
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(span) + slot<P>(i)) =
+        make_float2(x, y);
+  } else {
+    uint32_t w[pieces(P)];
+    split_pair<pieces(P)>(x, y, w);
+#pragma unroll
+    for (int q = 0; q < pieces(P); ++q)
+      *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(span) +
+                                   q * Sig<P>::PLANE + slot<P>(i)) = w[q];
+  }
+}
+
+constexpr int STAGE_LOADS = 8;   // 16-byte loads in flight per thread
+
+// The tile's spans, by the consumer threads ct: each row's samples from
+// its first frame's start, zeros past M. Read in the 16-byte chunks of buf
+// that hold them, STAGE_LOADS a thread in flight; a chunk that reaches past
+// the row's last sample is read sample by sample.
+template <int P>
+__device__ void stage_spans(unsigned char* span, const SigArgs& a,
+                            const TileSpan& s, int ct) {
+  int o = 0;
+  for (long long b = s.b0; b <= s.b1; ++b) {
+    const int len = b == s.b0 ? s.L0 : b == s.b1 ? s.Llast : s.Lfull;
+    const long long s0 = static_cast<long long>(b == s.b0 ? s.t0 : 0) * a.hop;
+    const int real = static_cast<int>(
+        max(0LL, min(static_cast<long long>(len), a.M - s0)));
+    const float* src = a.buf + b * a.M + s0;
+    // chunk c holds the span's samples 4c - off .. 4c - off + 3
+    const int off = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    const float4* chunks = reinterpret_cast<const float4*>(src - off);
+    const int n4 = (len + off + 3) / 4;
+    for (int c0 = 0; c0 < n4; c0 += THREADS * STAGE_LOADS) {
+      float4 v[STAGE_LOADS];
+#pragma unroll
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int c = c0 + ct + u * THREADS, first = 4 * c - off;
+        if (first + 3 < real) {
+          v[u] = __ldg(chunks + c);
+        } else {
+          float e[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            e[q] = first + q >= 0 && first + q < real ? __ldg(src + first + q)
+                                                      : 0.0f;
+          v[u] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int first = 4 * (c0 + ct + u * THREADS) - off;
+        const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        if (first >= 0 && first + 3 < len && !((o + first) & 1)) {
+          put_pair<P>(span, o + first, e[0], e[1]);
+          put_pair<P>(span, o + first + 2, e[2], e[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (first + q >= 0 && first + q < len)
+              put_sample<P>(span, o + first + q, e[q]);
+        }
+      }
+    }
+    o += len;
+  }
+}
+
+// Window w of the depth (samples w * FW .. + FW - 1 of each frame) of the
+// tile's frames, frame by frame, rows FST apart, by the consumer threads
+// ct: zeros at or past a frame's lim (its end, or the end of its row).
+// Read four samples at a time, one 16-byte load where they are aligned and
+// inside the frame, WINDOW_LOADS a thread in flight.
+constexpr int WINDOW_LOADS = 4;
+
+template <int P>
+__device__ void stage_window(unsigned char* span, const SigArgs& a,
+                             const long long* fsrc, const int* flim, int w,
+                             int ct) {
+  constexpr int FW = Sig<P>::FW, FST = Sig<P>::FST, QW = FW / 4;
+  const int k0 = w * FW;
+  for (int e0 = 0; e0 < TM * QW; e0 += THREADS * WINDOW_LOADS) {
+    float4 v[WINDOW_LOADS];
+#pragma unroll
+    for (int u = 0; u < WINDOW_LOADS; ++u) {
+      const int e = e0 + ct + u * THREADS, r = e / QW, k = k0 + 4 * (e - r * QW);
+      const float* src = a.buf + fsrc[r] + k;
+      if (e < TM * QW && k + 3 < flim[r] &&
+          !(reinterpret_cast<uintptr_t>(src) & 15)) {
+        v[u] = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        float x[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          x[q] = e < TM * QW && k + q < flim[r] ? __ldg(src + q) : 0.0f;
+        v[u] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WINDOW_LOADS; ++u) {
+      const int e = e0 + ct + u * THREADS, r = e / QW;
+      const int i = r * FST + 4 * (e - r * QW);   // even
+      if (e < TM * QW) {
+        put_pair<P>(span, i, v[u].x, v[u].y);
+        put_pair<P>(span, i + 2, v[u].z, v[u].w);
+      }
+    }
+  }
+}
+
+// The A fragment of the signal for the 16-deep step at k0, as NP pieces:
+// registers (row g, k0 + 2tq), (row g + 8, same), (row g, k0 + 8 + 2tq),
+// (row g + 8, same), each two columns as bf16x2, of the warp's 16 rows,
+// whose frames start at fb0 (row g) and fb1 (row g + 8) in the staged
+// planes, or with ldmatrix at lbase (row lane % 16). Columns at or past fl
+// are zeros.
+template <int P>
+__device__ __forceinline__ void frag_signal(uint32_t (&a)[pieces(P)][4],
+                                            const unsigned char* span,
+                                            int k0, int lbase, int fb0,
+                                            int fb1, bool ldsm, int fl) {
+  constexpr int NP = pieces(P);
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  if constexpr (P == 6) {
+    const float* x = reinterpret_cast<const float*>(span);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = k0 + 2 * tq + 8 * (r >> 1);
+      const int i = ((r & 1) ? fb1 : fb0) + k;   // k is even
+      float2 v;
+      if (i & 1)
+        v = make_float2(x[slot<P>(i)], x[slot<P>(i + 1)]);
+      else
+        v = *reinterpret_cast<const float2*>(x + slot<P>(i));
+      uint32_t w[NP];
+      split_pair<NP>(k < fl ? v.x : 0.0f, k + 1 < fl ? v.y : 0.0f, w);
+#pragma unroll
+      for (int q = 0; q < NP; ++q) a[q][r] = w[q];
+    }
+  } else {
+    if (ldsm) {
+      const bf16* x = reinterpret_cast<const bf16*>(span) +
+                      slot<P>(lbase + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int q = 0; q < NP; ++q) ldsm_x4(a[q], x + q * Sig<P>::PLANE);
+    } else {
+      const uint16_t* x = reinterpret_cast<const uint16_t*>(span);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ((r & 1) ? fb1 : fb0) + k0 + 2 * tq + 8 * (r >> 1);
+        const int i0 = slot<P>(i), i1 = slot<P>(i + 1);
+#pragma unroll
+        for (int q = 0; q < NP; ++q)
+          a[q][r] = x[q * Sig<P>::PLANE + i0] |
+                    (static_cast<uint32_t>(x[q * Sig<P>::PLANE + i1]) << 16);
+      }
+    }
+    if (k0 + 16 > fl) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = k0 + 2 * tq + 8 * (r >> 1);
+        const uint32_t keep = k >= fl ? 0u : k + 1 >= fl ? 0xFFFFu : ~0u;
+#pragma unroll
+        for (int q = 0; q < NP; ++q) a[q][r] &= keep;
+      }
+    }
+  }
+}
+
+// The fragments of group n: 16-deep steps GS n .. GS n + GS - 1, those
+// short of fl.
+template <int P, int GS>
+__device__ __forceinline__ void frag_group(uint32_t (&f)[GS][pieces(P)][4],
+                                           int n, const unsigned char* span,
+                                           int lbase, int fb0, int fb1,
+                                           bool ldsm, int fl) {
+#pragma unroll
+  for (int k = 0; k < GS; ++k)
+    if (16 * (GS * n + k) < fl)
+      frag_signal<P>(f[k], span, 16 * (GS * n + k), lbase, fb0, fb1, ldsm,
+                     fl);
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (the stride byte offset), the
+// layout type in bits 62-63. A 16-deep step within the 64-deep rows is the
+// start address plus 32 bytes; 32 rows on is 4096 bytes on.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler's reads and writes of an accumulator, and the
+// registers of an A fragment, on their side of the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int S, int NP>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[S][NP][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[s][q][r])::"memory");
+}
+
+// d[R0 .. R0 + R - 1] (64 x N f32, N = 32 R: 16 registers a thread per 32
+// columns, column group j of 8 at d[R0 + j / 4][4 (j % 4) ..]) += a (64 x
+// 16, bf16, registers) . b (16 x N, bf16, shared memory at b, K-major,
+// 128-byte swizzle)
+template <int R, int R0 = 0, int T>
+__device__ __forceinline__ void wgmma(float (&d)[T][16],
+                                      const uint32_t (&a)[4], uint32_t b) {
+  static_assert(R >= 1 && R <= 4 && R0 + R <= T, "64 x 32..128");
+  if constexpr (R == 1) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[R0 + 0][0]), "+f"(d[R0 + 0][1]), "+f"(d[R0 + 0][2]),
+          "+f"(d[R0 + 0][3]), "+f"(d[R0 + 0][4]), "+f"(d[R0 + 0][5]),
+          "+f"(d[R0 + 0][6]), "+f"(d[R0 + 0][7]), "+f"(d[R0 + 0][8]),
+          "+f"(d[R0 + 0][9]), "+f"(d[R0 + 0][10]), "+f"(d[R0 + 0][11]),
+          "+f"(d[R0 + 0][12]), "+f"(d[R0 + 0][13]), "+f"(d[R0 + 0][14]),
+          "+f"(d[R0 + 0][15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
+          "r"(1));
+  } else if constexpr (R == 2) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[R0 + 0][0]), "+f"(d[R0 + 0][1]), "+f"(d[R0 + 0][2]),
+          "+f"(d[R0 + 0][3]), "+f"(d[R0 + 0][4]), "+f"(d[R0 + 0][5]),
+          "+f"(d[R0 + 0][6]), "+f"(d[R0 + 0][7]), "+f"(d[R0 + 0][8]),
+          "+f"(d[R0 + 0][9]), "+f"(d[R0 + 0][10]), "+f"(d[R0 + 0][11]),
+          "+f"(d[R0 + 0][12]), "+f"(d[R0 + 0][13]), "+f"(d[R0 + 0][14]),
+          "+f"(d[R0 + 0][15]), "+f"(d[R0 + 1][0]), "+f"(d[R0 + 1][1]),
+          "+f"(d[R0 + 1][2]), "+f"(d[R0 + 1][3]), "+f"(d[R0 + 1][4]),
+          "+f"(d[R0 + 1][5]), "+f"(d[R0 + 1][6]), "+f"(d[R0 + 1][7]),
+          "+f"(d[R0 + 1][8]), "+f"(d[R0 + 1][9]), "+f"(d[R0 + 1][10]),
+          "+f"(d[R0 + 1][11]), "+f"(d[R0 + 1][12]), "+f"(d[R0 + 1][13]),
+          "+f"(d[R0 + 1][14]), "+f"(d[R0 + 1][15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
+          "r"(1));
+  } else if constexpr (R == 3) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[R0 + 0][0]), "+f"(d[R0 + 0][1]), "+f"(d[R0 + 0][2]),
+          "+f"(d[R0 + 0][3]), "+f"(d[R0 + 0][4]), "+f"(d[R0 + 0][5]),
+          "+f"(d[R0 + 0][6]), "+f"(d[R0 + 0][7]), "+f"(d[R0 + 0][8]),
+          "+f"(d[R0 + 0][9]), "+f"(d[R0 + 0][10]), "+f"(d[R0 + 0][11]),
+          "+f"(d[R0 + 0][12]), "+f"(d[R0 + 0][13]), "+f"(d[R0 + 0][14]),
+          "+f"(d[R0 + 0][15]), "+f"(d[R0 + 1][0]), "+f"(d[R0 + 1][1]),
+          "+f"(d[R0 + 1][2]), "+f"(d[R0 + 1][3]), "+f"(d[R0 + 1][4]),
+          "+f"(d[R0 + 1][5]), "+f"(d[R0 + 1][6]), "+f"(d[R0 + 1][7]),
+          "+f"(d[R0 + 1][8]), "+f"(d[R0 + 1][9]), "+f"(d[R0 + 1][10]),
+          "+f"(d[R0 + 1][11]), "+f"(d[R0 + 1][12]), "+f"(d[R0 + 1][13]),
+          "+f"(d[R0 + 1][14]), "+f"(d[R0 + 1][15]), "+f"(d[R0 + 2][0]),
+          "+f"(d[R0 + 2][1]), "+f"(d[R0 + 2][2]), "+f"(d[R0 + 2][3]),
+          "+f"(d[R0 + 2][4]), "+f"(d[R0 + 2][5]), "+f"(d[R0 + 2][6]),
+          "+f"(d[R0 + 2][7]), "+f"(d[R0 + 2][8]), "+f"(d[R0 + 2][9]),
+          "+f"(d[R0 + 2][10]), "+f"(d[R0 + 2][11]), "+f"(d[R0 + 2][12]),
+          "+f"(d[R0 + 2][13]), "+f"(d[R0 + 2][14]), "+f"(d[R0 + 2][15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
+          "r"(1));
+  } else if constexpr (R == 4) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[R0 + 0][0]), "+f"(d[R0 + 0][1]), "+f"(d[R0 + 0][2]),
+          "+f"(d[R0 + 0][3]), "+f"(d[R0 + 0][4]), "+f"(d[R0 + 0][5]),
+          "+f"(d[R0 + 0][6]), "+f"(d[R0 + 0][7]), "+f"(d[R0 + 0][8]),
+          "+f"(d[R0 + 0][9]), "+f"(d[R0 + 0][10]), "+f"(d[R0 + 0][11]),
+          "+f"(d[R0 + 0][12]), "+f"(d[R0 + 0][13]), "+f"(d[R0 + 0][14]),
+          "+f"(d[R0 + 0][15]), "+f"(d[R0 + 1][0]), "+f"(d[R0 + 1][1]),
+          "+f"(d[R0 + 1][2]), "+f"(d[R0 + 1][3]), "+f"(d[R0 + 1][4]),
+          "+f"(d[R0 + 1][5]), "+f"(d[R0 + 1][6]), "+f"(d[R0 + 1][7]),
+          "+f"(d[R0 + 1][8]), "+f"(d[R0 + 1][9]), "+f"(d[R0 + 1][10]),
+          "+f"(d[R0 + 1][11]), "+f"(d[R0 + 1][12]), "+f"(d[R0 + 1][13]),
+          "+f"(d[R0 + 1][14]), "+f"(d[R0 + 1][15]), "+f"(d[R0 + 2][0]),
+          "+f"(d[R0 + 2][1]), "+f"(d[R0 + 2][2]), "+f"(d[R0 + 2][3]),
+          "+f"(d[R0 + 2][4]), "+f"(d[R0 + 2][5]), "+f"(d[R0 + 2][6]),
+          "+f"(d[R0 + 2][7]), "+f"(d[R0 + 2][8]), "+f"(d[R0 + 2][9]),
+          "+f"(d[R0 + 2][10]), "+f"(d[R0 + 2][11]), "+f"(d[R0 + 2][12]),
+          "+f"(d[R0 + 2][13]), "+f"(d[R0 + 2][14]), "+f"(d[R0 + 2][15]),
+          "+f"(d[R0 + 3][0]), "+f"(d[R0 + 3][1]), "+f"(d[R0 + 3][2]),
+          "+f"(d[R0 + 3][3]), "+f"(d[R0 + 3][4]), "+f"(d[R0 + 3][5]),
+          "+f"(d[R0 + 3][6]), "+f"(d[R0 + 3][7]), "+f"(d[R0 + 3][8]),
+          "+f"(d[R0 + 3][9]), "+f"(d[R0 + 3][10]), "+f"(d[R0 + 3][11]),
+          "+f"(d[R0 + 3][12]), "+f"(d[R0 + 3][13]), "+f"(d[R0 + 3][14]),
+          "+f"(d[R0 + 3][15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
+          "r"(1));
+  }
+}
+
+// One group of z's products, committed as one wgmma group: STEPS 16-deep
+// steps from step kk0 (f's first STEPS fragments) of the chunk's NH halves
+// (one wgmma of 64 NH columns), each step's P passes in the pass order,
+// against the ring slot at b0 (its pieces PIECE_BYTES apart, a step 32
+// bytes on).
+template <int P, int NH, int STEPS, int GS>
+__device__ __forceinline__ void dft_group(float (&z)[4][16],
+                                          const uint32_t (&f)[GS][pieces(P)][4],
+                                          uint32_t b0, int kk0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) fence_acc(z[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < STEPS; ++k)
+#pragma unroll
+    for (int pass = 0; pass < P; ++pass)
+      wgmma<2 * NH>(z, f[k][a_piece(pass)],
+                    b0 + b_piece(pass) * PIECE_BYTES + ((kk0 + k) % 4) * 32);
+  wgmma_commit();
+}
+
+// dft_group of `steps` (GS, or 1 for the last group of an odd count):
+// whole groups on each side of the branch, since ptxas serializes wgmmas
+// that a branch skips inside a group.
+template <int P, int NH, int GS>
+__device__ __forceinline__ void dft_steps(int steps, float (&z)[4][16],
+                                          const uint32_t (&f)[GS][pieces(P)][4],
+                                          uint32_t b0, int kk0) {
+  static_assert(GS <= 2, "a group is one or two steps");
+  if (steps == GS)
+    dft_group<P, NH, GS>(z, f, b0, kk0);
+  else
+    dft_group<P, NH, 1>(z, f, b0, kk0);
+}
+
+// the named barrier of the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+// P passes per product (6: "highest", 3: bf16x3, 1: default); MI mel
+// wgmmas of 32 bands per slab.
+template <int P, int MI>
+__global__ void __launch_bounds__(SIG_THREADS, 1)
+signal_mma_kernel(__grid_constant__ const SigArgs a) {
+  using L = Sig<P>;
+  constexpr int NP = L::NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  unsigned char* span = ring + RING_BYTES;   // the signal; the log-mel
+  float* smel = reinterpret_cast<float*>(span);
+  uint64_t* full = reinterpret_cast<uint64_t*>(span + SPAN_BYTES);
+  uint64_t* empty = full + 8;
+  long long* fsrc = reinterpret_cast<long long*>(full + 16);  // [TM]
+  int* flim = reinterpret_cast<int*>(fsrc + TM);              // [TM]
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], EMPTY_ARRIVALS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const long long n_tiles = (a.total + TM - 1) / TM;
+  const int nc16 = round_up(a.nc, 16);
+  const int chunks = (nc16 + NT - 1) / NT;
+  const int slices = (a.fl + KS - 1) / KS;     // CS's 64-deep slices
+  const int fb_blocks = 2 * chunks;            // FB's 64-deep blocks a slab
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+
+  if (wg == CONSUMERS) {
+    // ---- the producer: thread 0 of the last warpgroup, the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp != 0 || lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto next = [&]() {
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      for (int m0 = 0; m0 < a.nm; m0 += SLAB) {
+        const int mt = (min(SLAB, a.nm - m0) + MEL_N - 1) / MEL_N;
+        const uint32_t fb_bytes = mt * MEL_N * KS * 2;
+        for (int c = 0; c < chunks; ++c) {
+          const int nh = min(2, (nc16 - c * NT + NZ - 1) / NZ);
+          for (int j = 0; j < slices; ++j) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], nh * NP * HALF_BYTES);
+            const bf16* src = a.cs + static_cast<size_t>(c * slices + j) *
+                                         NP * (PIECE_BYTES / 2);
+            for (int q = 0; q < NP; ++q)
+              bulk_load(ring + stage * L::STAGE + q * PIECE_BYTES,
+                        src + q * (PIECE_BYTES / 2), nh * HALF_BYTES,
+                        &full[stage]);
+            next();
+          }
+          for (int h = 0; h < nh; ++h) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], NP * fb_bytes);
+            const bf16* src =
+                a.fb + static_cast<size_t>((m0 / SLAB) * fb_blocks + 2 * c +
+                                           h) *
+                           NP * (PIECE_BYTES / 2);
+            for (int q = 0; q < NP; ++q)
+              bulk_load(ring + stage * L::STAGE + q * PIECE_BYTES,
+                        src + q * (PIECE_BYTES / 2), fb_bytes, &full[stage]);
+            next();
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumers: tile rows 64 * wg .. 64 * wg + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    // 16-deep steps of a group of z's fragments, built while the group
+    // before runs: two, but one at six passes with the widest slab, where
+    // two spill
+    constexpr int GS = P == 6 && MI == 4 ? 1 : 2, GPS = 4 / GS;
+    const int ct = threadIdx.x;                // 0 .. THREADS - 1
+    const int g = lane / 4, tq = lane % 4;
+    const int row0 = 64 * wg + 16 * warp;      // the warp's first tile row
+    // the ring's next slot to take and to free: a slice is taken before
+    // the one before it is freed
+    int tstage = 0, rstage = 0;
+    uint32_t tphase = 0;
+    auto take = [&]() {
+      mbar_wait(&full[tstage], tphase);
+      const uint32_t at = smem_addr(ring + tstage * L::STAGE);
+      if (++tstage == L::STAGES) {
+        tstage = 0;
+        tphase ^= 1;
+      }
+      return at;
+    };
+    auto release = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[rstage]);
+      if (++rstage == L::STAGES) rstage = 0;
+    };
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const TileSpan s = tile_span(a, tile);
+      const bool framewise = s.total + 16 > L::CAP;
+      const bool ldsm = P != 6 && (framewise || a.hop % 8 == 0);
+      // this thread's frame starts: rows g and g + 8 of the warp, and the
+      // row it gives ldmatrix (lane % 16)
+      int fb0 = 0, fb1 = 0, lbase = 0;
+      if (framewise) {
+        if (ct < TM) {
+          long long src = 0;
+          int lim = 0;
+          if (ct < s.valid) {
+            const long long gf = s.g0 + ct, b = gf / a.n_frames;
+            const long long start = (gf - b * a.n_frames) * a.hop;
+            src = b * a.M + start;
+            lim = static_cast<int>(
+                max(0LL, min(static_cast<long long>(a.fl), a.M - start)));
+          }
+          fsrc[ct] = src;
+          flim[ct] = lim;
+        }
+        consumers_sync();
+      } else {
+        fb0 = span_base(a, s, row0 + g);
+        fb1 = span_base(a, s, row0 + g + 8);
+        lbase = span_base(a, s, row0 + (lane & 15));
+      }
+      for (int m0 = 0; m0 < a.nm; m0 += SLAB) {
+        const int nms = min(SLAB, a.nm - m0);
+        const int mt = (nms + MEL_N - 1) / MEL_N;
+        float mel[MI][16];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int e = 0; e < 16; ++e) mel[i][e] = 0.0f;
+        // the staged signal: the tile's spans, once a slab; or frame by
+        // frame, the window holding group n's steps, staged where it is not
+        // yet (-1: none)
+        int staged = -1;
+        if (!framewise) {
+          stage_spans<P>(span, a, s, ct);
+          consumers_sync();
+          staged = 0;
+        }
+        auto restage = [&](int n) {
+          const int w = n / GPS * KS / L::FW;
+          if (!framewise || w == staged) return;
+          if (staged >= 0) consumers_sync();    // the window is read
+          stage_window<P>(span, a, fsrc, flim, w, ct);
+          fb0 = (row0 + g) * L::FST - w * L::FW;
+          fb1 = fb0 + 8 * L::FST;
+          lbase = (row0 + (lane & 15)) * L::FST - w * L::FW;
+          consumers_sync();
+          staged = w;
+        };
+        const int groups = (a.fl + 16 * GS - 1) / (16 * GS);
+        constexpr int MS = L::MS;
+        for (int c = 0; c < chunks; ++c) {
+          const int c0 = c * NT;
+          const int nh = min(2, (nc16 - c0 + NZ - 1) / NZ);
+          float z[4][16];   // half h: z[2h], z[2h + 1]
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 16; ++e) z[i][e] = 0.0f;
+
+          // 1. z's chunk: CS's 64-deep slices against the staged signal,
+          // group by group, each group's fragments built while the group
+          // before it runs on the tensor cores
+          uint32_t fa[2][GS][NP][4];
+          uint32_t b0 = 0;
+          restage(0);
+          frag_group<P>(fa[0], 0, span, lbase, fb0, fb1, ldsm, a.fl);
+          for (int n = 0; n < groups; n += 2) {
+#pragma unroll
+            for (int par = 0; par < 2; ++par) {
+              // group n + par from fa[par]; then group n + par + 1 into
+              // fa[par ^ 1], once the group before, which read it, is done
+              const int gn = n + par;
+              if (gn >= groups) break;
+              if (gn % GPS == 0) b0 = take();
+              const int steps = min(GS, (a.fl + 15) / 16 - GS * gn);
+              if (nh == 2)
+                dft_steps<P, 2>(steps, z, fa[par], b0, GS * gn);
+              else
+                dft_steps<P, 1>(steps, z, fa[par], b0, GS * gn);
+              wgmma_wait<1>();
+              fence_frags(fa[par ^ 1]);
+              if (gn > 0 && (gn - 1) % GPS == GPS - 1) release();
+              if (gn + 1 < groups) {
+                restage(gn + 1);
+                frag_group<P>(fa[par ^ 1], gn + 1, span, lbase, fb0, fb1,
+                              ldsm, a.fl);
+              }
+            }
+          }
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_acc(z[i]);
+          fence_frags(fa[0]);
+          fence_frags(fa[1]);
+          release();                          // the last slice
+
+          // 2. mel += (z*z or |X|) . FB: each half of the chunk as the A
+          // operand straight from z's registers, MS steps a batch, against
+          // the half's FB slot; z's columns past nc are zeros, and the
+          // bands past the slab's are not stored, so every batch issues all
+          // its steps over all 32 MI bands (a branch inside a batch would
+          // serialize the wgmmas)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h >= nh) break;
+            const int msteps = min(4, (nc16 - c0 - NZ * h) / 16);
+            const uint32_t bm = take();
+#pragma unroll
+            for (int k0 = 0; k0 < 4; k0 += MS) {
+              if (k0 >= msteps) break;
+              uint32_t fm[MS][NP][4];
+#pragma unroll
+              for (int k = 0; k < MS; ++k) {
+                // register r: rows g / g + 8 of z's columns 16kk + 2tq (r =
+                // 0, 1), then 16kk + 8 + 2tq (r = 2, 3): accumulator pairs
+                // 8kk + 2r
+                const int kk = k0 + k;
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                  const int zi = 32 * h + 8 * kk + 2 * r;
+                  const float re = z[zi / 16][zi % 16];
+                  const float im = z[zi / 16][zi % 16 + 1];
+                  float s0, s1;
+                  if (!a.magnitude) {
+                    s0 = __fmul_rn(re, re);
+                    s1 = __fmul_rn(im, im);
+                  } else if (c0 + NZ * h + 16 * kk + 8 * (r >> 1) + 2 * tq ==
+                             0) {
+                    s0 = sqrtf(__fmul_rn(re, re));   // pair 0: Re_0, Re_nb-1
+                    s1 = sqrtf(__fmul_rn(im, im));
+                  } else {
+                    s0 = sqrtf(
+                        __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+                    s1 = 0.0f;
+                  }
+                  uint32_t x[NP];
+                  split_pair<NP>(s0, s1, x);
+#pragma unroll
+                  for (int q = 0; q < NP; ++q) fm[k][q][r] = x[q];
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < MI; ++i) fence_acc(mel[i]);
+              wgmma_fence();
+#pragma unroll
+              for (int k = 0; k < MS; ++k)
+#pragma unroll
+                for (int pass = 0; pass < P; ++pass)
+                  wgmma<MI>(mel, fm[k][a_piece(pass)],
+                            bm + b_piece(pass) * PIECE_BYTES + (k0 + k) * 32);
+              wgmma_commit();
+              wgmma_wait<0>();
+#pragma unroll
+              for (int i = 0; i < MI; ++i) fence_acc(mel[i]);
+              fence_frags(fm);
+            }
+            release();
+          }
+        }
+
+        // 3. the log, to the log-mel tile over the staged signal
+        consumers_sync();   // every warp is done with the signal
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          if (i >= mt) break;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int row = row0 + g + 8 * ((e >> 1) & 1);
+            const int col = MEL_N * i + 8 * (e >> 2) + 2 * tq + (e & 1);
+            if (col < nms)
+              smel[row * LDM + col] =
+                  log_value(mel[i][e], a.log_kind, a.log_floor);
+          }
+        }
+        consumers_sync();
+
+        // 4. the DCT or the log-mel, for the tile's valid frames
+        if (a.dct.p[0] != nullptr)
+          dct_rows<P>(smel, LDM, nms, m0, a.dct, a.d_out, s.valid,
+                      a.out + s.g0 * a.d_out);
+        else
+          store_logmel(smel, LDM, nms, a.nm, s.valid,
+                       a.out + s.g0 * a.nm + m0);
+        consumers_sync();   // the tile is read before the signal is staged
+      }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// K4: the tail kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TAIL_ROWS = 64;    // rows per tile
+constexpr int TAIL_SLOTS = 3;    // most tiles in the ring
+constexpr size_t TAIL_HEAD = 128;  // the slots' mbarriers, at the front
 
 // One thread: tile t's rows (the last tile's valid ones) into a slot,
 // completing on its barrier. One bulk copy brings the span to its last
@@ -1030,42 +1477,63 @@ tail_mma_kernel(const float* __restrict__ rows, long long R, int nb, int tr,
   }
 }
 
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 template <int P, int MI>
-int launch(int device, const float* buf, int B, long long M, int n_frames,
-           int hop, int fl, Pieces cs, int nc, Pieces fb, int nm,
-           int magnitude, int log_kind, float log_floor, FPieces dct,
-           int d_out, float* out, void* stream) {
-  constexpr size_t bytes = smem_bytes<P>();
-  cudaError_t err = cudaSetDevice(device);
+int sig_prepare(cudaFuncAttributes* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      signal_mma_kernel<P, MI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SIG_SMEM));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(attr, signal_mma_kernel<P, MI>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(signal_mma_kernel<P, MI>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * n_frames;
-  const dim3 grid(static_cast<unsigned>((total + TM - 1) / TM));
-  signal_mma_kernel<P, MI><<<grid, THREADS, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      buf, M, n_frames, total, hop, fl, cs, nc, fb, nm, magnitude, log_kind,
-      log_floor, dct, d_out, out);
+  // fewer registers at launch than the consumers ask for would stall
+  // setmaxnreg: refuse to launch
+  return attr->numRegs < LAUNCH_REGS
+             ? static_cast<int>(cudaErrorLaunchOutOfResources)
+             : 0;
+}
+
+template <int P, int MI>
+int launch(int device, const SigArgs& args, void* stream) {
+  // the SMs of the device this host thread launched on last: the queries
+  // take longer than a streaming step's launch
+  struct Ready {
+    int device = -1, sms = 0;
+  };
+  static thread_local Ready ready;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (ready.device != device) {
+    cudaFuncAttributes attr;
+    const int err = sig_prepare<P, MI>(&attr);
+    if (err) return err;
+    Ready now;
+    now.device = device;
+    e = cudaDeviceGetAttribute(&now.sms, cudaDevAttrMultiProcessorCount,
+                               device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = now;
+  }
+  const long long tiles = (args.total + TM - 1) / TM;
+  const dim3 grid(static_cast<unsigned>(
+      std::min(tiles, static_cast<long long>(ready.sms))));
+  signal_mma_kernel<P, MI><<<grid, SIG_THREADS, SIG_SMEM,
+                             static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int P, int MI>
-int resources(int* smem, int* blocks_per_sm) {
-  constexpr size_t bytes = smem_bytes<P>();
-  *smem = static_cast<int>(bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      signal_mma_kernel<P, MI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+int resources(int* smem, int* blocks_per_sm, int* regs, int* local_bytes) {
+  cudaFuncAttributes attr{};
+  const int err = sig_prepare<P, MI>(&attr);
+  *smem = static_cast<int>(SIG_SMEM);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  if (err) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, signal_mma_kernel<P, MI>, THREADS, bytes));
+      blocks_per_sm, signal_mma_kernel<P, MI>, SIG_THREADS, SIG_SMEM));
 }
 
 int pass_index(int passes) {
@@ -1073,11 +1541,11 @@ int pass_index(int passes) {
 }
 
 // The signal kernel's instantiation for `passes` and nm mel bands (MI mel
-// tiles of 8 per warp for the widest slab), or -1 where none fits.
+// wgmmas of 32 bands for the widest slab), or -1 where none fits.
 int variant(int passes, int nm) {
   const int p = pass_index(passes);
   if (p < 0 || nm < 1) return -1;
-  const int mi = (round_up(min(nm, SLAB), 8) / 8 + 3) / 4;  // 1 .. 4
+  const int mi = round_up(std::min(nm, SLAB), MEL_N) / MEL_N;  // 1 .. 4
   return 4 * p + mi - 1;
 }
 
@@ -1156,70 +1624,84 @@ int launch_tail(int device, const float* rows, long long R, int nb,
 
 // K1/K2: buf [B, M] -> features [B, n_frames, d_out]; K3: conditioned
 // frames [R, fl] -> features [R, d_out], as the buffer [1, R*fl] with
-// n_frames = R and hop = fl. The constants arrive split
-// (kernels/signal.py mma_constants), each as its pieces hi, mid, lo (the
-// ones the pass count does not read may be null): cs [round_up(fl, 32),
-// round_up(nc, 128)] bf16 with the columns in (Re, Im) pairs, fb
-// [round_up(nc, 128), round_up(nm, 8)] bf16 with the rows to match, dct
-// [nm, d_out] f32 (bf16 values), or all three null. passes: 6 ("highest"),
-// 3 (bf16x3) or 1 (default); any other count returns
+// n_frames = R and hop = fl. The constants arrive split and packed
+// (kernels/signal.py mma_blocks), bf16: cs, CS's pieces as
+// [round_up(nc, 128) / 128] chunks x [ceil(fl / 64)] slices x 2 halves x
+// pieces of 64 columns (in (Re, Im) pairs) x 64 deep; fb, fb's as
+// [ceil(nm / 128)] slabs x [round_up(nc, 128) / 64] blocks x pieces of 128
+// bands x 64 deep (rows to match CS's columns); each block K-major in
+// wgmma's 128-byte swizzle, 16-byte aligned. dct: [nm, d_out] f32 pieces
+// (bf16 values), or all three null (the ones the pass count does not read
+// may be null). passes: 6 ("highest"), 3 (bf16x3) or 1 (default); any other
+// count, or a shape the kernel does not take, returns
 // cudaErrorInvalidValue.
 extern "C" int tpufeat_signal_features_mma(
     int device, const float* buf, int B, long long M, int n_frames, int hop,
-    int fl, const void* cs_hi, const void* cs_mid, const void* cs_lo, int nc,
-    const void* fb_hi, const void* fb_mid, const void* fb_lo, int nm,
-    int magnitude, int log_kind, float log_floor, const float* dct_hi,
-    const float* dct_mid, const float* dct_lo, int d_out, float* out,
-    int passes, void* stream) {
-  const Pieces cs{{static_cast<const bf16*>(cs_hi),
-                   static_cast<const bf16*>(cs_mid),
-                   static_cast<const bf16*>(cs_lo)}};
-  const Pieces fb{{static_cast<const bf16*>(fb_hi),
-                   static_cast<const bf16*>(fb_mid),
-                   static_cast<const bf16*>(fb_lo)}};
-  const FPieces dct{{dct_hi, dct_mid, dct_lo}};
-#define TPUFEAT_LAUNCH(P, MI)                                                \
-  return launch<P, MI>(device, buf, B, M, n_frames, hop, fl, cs, nc, fb, nm, \
-                       magnitude, log_kind, log_floor, dct, d_out, out,      \
-                       stream)
+    int fl, const void* cs, int nc, const void* fb, int nm, int magnitude,
+    int log_kind, float log_floor, const float* dct_hi, const float* dct_mid,
+    const float* dct_lo, int d_out, float* out, int passes, void* stream) {
+  if (B < 1 || M < 1 || n_frames < 1 || hop < 1 || fl < 1 || nc < 2 ||
+      cs == nullptr || fb == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SigArgs args = {};
+  args.buf = buf;
+  args.M = M;
+  args.total = static_cast<long long>(B) * n_frames;
+  args.n_frames = n_frames;
+  args.hop = hop;
+  args.fl = fl;
+  args.cs = static_cast<const bf16*>(cs);
+  args.nc = nc;
+  args.fb = static_cast<const bf16*>(fb);
+  args.nm = nm;
+  args.magnitude = magnitude;
+  args.log_kind = log_kind;
+  args.log_floor = log_floor;
+  args.dct = FPieces{{dct_hi, dct_mid, dct_lo}};
+  args.d_out = d_out;
+  args.out = out;
   switch (variant(passes, nm)) {
-    case 0: TPUFEAT_LAUNCH(1, 1);
-    case 1: TPUFEAT_LAUNCH(1, 2);
-    case 2: TPUFEAT_LAUNCH(1, 3);
-    case 3: TPUFEAT_LAUNCH(1, 4);
-    case 4: TPUFEAT_LAUNCH(3, 1);
-    case 5: TPUFEAT_LAUNCH(3, 2);
-    case 6: TPUFEAT_LAUNCH(3, 3);
-    case 7: TPUFEAT_LAUNCH(3, 4);
-    case 8: TPUFEAT_LAUNCH(6, 1);
-    case 9: TPUFEAT_LAUNCH(6, 2);
-    case 10: TPUFEAT_LAUNCH(6, 3);
-    case 11: TPUFEAT_LAUNCH(6, 4);
+    case 0: return launch<1, 1>(device, args, stream);
+    case 1: return launch<1, 2>(device, args, stream);
+    case 2: return launch<1, 3>(device, args, stream);
+    case 3: return launch<1, 4>(device, args, stream);
+    case 4: return launch<3, 1>(device, args, stream);
+    case 5: return launch<3, 2>(device, args, stream);
+    case 6: return launch<3, 3>(device, args, stream);
+    case 7: return launch<3, 4>(device, args, stream);
+    case 8: return launch<6, 1>(device, args, stream);
+    case 9: return launch<6, 2>(device, args, stream);
+    case 10: return launch<6, 3>(device, args, stream);
+    case 11: return launch<6, 4>(device, args, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef TPUFEAT_LAUNCH
 }
 
-// The signal kernel's dynamic shared memory per block and how many blocks
-// fit on one SM of the current device, for `passes` and nm mel bands.
+// The signal kernel's launch on the current device for `passes` and nm mel
+// bands: dynamic shared memory per block, blocks per SM, registers per
+// thread at launch, and local memory per thread (spills; 0 when none).
 extern "C" int tpufeat_signal_mma_resources(int passes, int nm,
                                             int* smem_bytes,
-                                            int* blocks_per_sm) {
+                                            int* blocks_per_sm, int* regs,
+                                            int* local_bytes) {
+#define TPUFEAT_RESOURCES(P, MI) \
+  return resources<P, MI>(smem_bytes, blocks_per_sm, regs, local_bytes)
   switch (variant(passes, nm)) {
-    case 0: return resources<1, 1>(smem_bytes, blocks_per_sm);
-    case 1: return resources<1, 2>(smem_bytes, blocks_per_sm);
-    case 2: return resources<1, 3>(smem_bytes, blocks_per_sm);
-    case 3: return resources<1, 4>(smem_bytes, blocks_per_sm);
-    case 4: return resources<3, 1>(smem_bytes, blocks_per_sm);
-    case 5: return resources<3, 2>(smem_bytes, blocks_per_sm);
-    case 6: return resources<3, 3>(smem_bytes, blocks_per_sm);
-    case 7: return resources<3, 4>(smem_bytes, blocks_per_sm);
-    case 8: return resources<6, 1>(smem_bytes, blocks_per_sm);
-    case 9: return resources<6, 2>(smem_bytes, blocks_per_sm);
-    case 10: return resources<6, 3>(smem_bytes, blocks_per_sm);
-    case 11: return resources<6, 4>(smem_bytes, blocks_per_sm);
+    case 0: TPUFEAT_RESOURCES(1, 1);
+    case 1: TPUFEAT_RESOURCES(1, 2);
+    case 2: TPUFEAT_RESOURCES(1, 3);
+    case 3: TPUFEAT_RESOURCES(1, 4);
+    case 4: TPUFEAT_RESOURCES(3, 1);
+    case 5: TPUFEAT_RESOURCES(3, 2);
+    case 6: TPUFEAT_RESOURCES(3, 3);
+    case 7: TPUFEAT_RESOURCES(3, 4);
+    case 8: TPUFEAT_RESOURCES(6, 1);
+    case 9: TPUFEAT_RESOURCES(6, 2);
+    case 10: TPUFEAT_RESOURCES(6, 3);
+    case 11: TPUFEAT_RESOURCES(6, 4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TPUFEAT_RESOURCES
 }
 
 // K4: spectrum rows [R, nb] (16-byte aligned) -> features [R, d_out] on the
@@ -1283,3 +1765,4 @@ extern "C" int tpufeat_tail_mma_resources(int passes, int nb, int nm,
 extern "C" const char* tpufeat_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+

@@ -15,10 +15,11 @@ its bound starts at the mel sum (:func:`tail_stages`).
 The flip bound is loose: a flip of a bf16-rounded log-mel moves all of a
 frame's MFCCs, by up to about 1 abs with lifter 22, and a wrong pass count
 stays inside it. So at ``"default"`` :func:`compare_to_twin` also counts
-whole frames: in every window of MMA_TILE_FRAMES consecutive frames (the
-kernel's tile, where the rows are in the call's order) at most FLIP_FRAMES
-may have an output past TOL_TWIN. A sound kernel flips a frame now and
-then; a pass swap or a wrong tile moves nearly every frame of a window.
+whole frames: in every window of FLIP_WINDOW = 64 consecutive frames (the
+call's rows in order; the width of the kernel's tile when the bound was
+set, kept when the tile grew) at most FLIP_FRAMES may have an output past
+TOL_TWIN. A sound kernel flips a frame now and then; a pass swap or a
+wrong tile moves nearly every frame of a window.
 On an H100 (``chip_smoke.py``, PERF.md) the sound kernel showed at most 4
 such frames in a window and 1.2 % of a 3000-frame call's frames; the
 bf16x3 kernel held as the default one, 64 and 100 %.
@@ -33,12 +34,13 @@ import torch
 
 from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels.signal import (
-    _LOG_KIND, MMA_TILE_FRAMES, cs_constant, dct_constant, fb_constant,
-    log_tail, mm, no_tf32, passes, put, split_bf16)
+    _LOG_KIND, cs_constant, dct_constant, fb_constant, log_tail, mm,
+    no_tf32, passes, put, split_bf16)
 from tpufeat_torch.kernels.staged import tail_fb_constant
 
 TOL_TWIN = 1e-4        # kernel vs twin, relative to max(1, |twin|.max())
 FLIP_FRAMES = 8        # at "default": frames past TOL_TWIN per window
+FLIP_WINDOW = 64       # consecutive frames of such a window
 TWIN_ROWS = 1 << 16    # rows per chunk of twin_tolerance
 
 
@@ -181,12 +183,12 @@ def twin_tolerance(want: torch.Tensor, inputs: torch.Tensor,
 
 def frames_past(err: torch.Tensor, limit: float) -> tuple[float, int]:
     """(share of frames with an error past ``limit``, most such frames in
-    one window of MMA_TILE_FRAMES consecutive frames) of errors
+    one window of FLIP_WINDOW consecutive frames) of errors
     [..., D], one frame per row."""
     past = (err.reshape(-1, err.shape[-1]) > limit).any(-1)
-    pad = -past.numel() % MMA_TILE_FRAMES
+    pad = -past.numel() % FLIP_WINDOW
     windows = torch.cat([past, past.new_zeros(pad)]).reshape(
-        -1, MMA_TILE_FRAMES).sum(-1)
+        -1, FLIP_WINDOW).sum(-1)
     return past.double().mean().item(), int(windows.max().item())
 
 
@@ -197,7 +199,7 @@ def compare_to_twin(got: torch.Tensor, want: torch.Tensor,
     """A kernel's output against its twin's for ``inputs`` (frames, or
     with ``spectrum`` K4's spectrum rows); raises AssertionError past
     :func:`twin_tolerance`, or at ``"default"`` where a window of
-    MMA_TILE_FRAMES rows holds more than FLIP_FRAMES rows past TOL_TWIN
+    FLIP_WINDOW rows holds more than FLIP_FRAMES rows past TOL_TWIN
     (see the module docstring)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
@@ -213,7 +215,7 @@ def compare_to_twin(got: torch.Tensor, want: torch.Tensor,
     scale = max(1.0, want.abs().max().item())
     share, window = frames_past(err, TOL_TWIN * scale)
     if passes(cfg) == 1 and window > FLIP_FRAMES:
-        raise AssertionError(f"{what}: {window} of {MMA_TILE_FRAMES} "
+        raise AssertionError(f"{what}: {window} of {FLIP_WINDOW} "
                              f"consecutive frames past {TOL_TWIN} scaled "
                              f"(at most {FLIP_FRAMES} may flip)")
     return Agreement(err.max().item(), err.max().item() / scale, share,

@@ -113,25 +113,6 @@ def _kinds(m) -> tuple:
     return (*split_pieces(f32, 3), f32)
 
 
-@functools.lru_cache(maxsize=None)
-def _swizzle(rows: int) -> torch.Tensor:
-    """Where element (n, k) of a [rows, 64] block (flat n*64 + k) sits in
-    wgmma's K-major 128-byte swizzle: row n is 128 bytes, and its eight
-    16-byte pieces are permuted by n % 8."""
-    n = torch.arange(rows)[:, None]
-    k = torch.arange(SLICE)[None, :]
-    return (n * SLICE + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
-
-
-def _swizzled(blocks: torch.Tensor) -> torch.Tensor:
-    """[..., n, 64] blocks -> [..., n * 64] in the swizzled order."""
-    rows = blocks.shape[-2]
-    flat = blocks.reshape(*blocks.shape[:-2], rows * SLICE)
-    out = torch.empty_like(flat)
-    out[..., _swizzle(rows)] = flat
-    return out
-
-
 def pack_blocks(pieces: list, transpose: bool) -> torch.Tensor:
     """A matrix's bf16 pieces as the kernel's packed blocks, [blocks,
     pieces, n * 64]: a block holds n output columns and 64 rows of the
@@ -146,11 +127,11 @@ def pack_blocks(pieces: list, transpose: bool) -> torch.Tensor:
     P, K, N = m.shape
     if transpose:
         b = m.reshape(P, K // SLICE, SLICE, N).permute(1, 0, 3, 2)
-        return _swizzled(b).contiguous()         # [c, P, n * k]
+        return signal.swizzled(b).contiguous()         # [c, P, n * k]
     ns = -(-K // SLICE)
     m = torch.nn.functional.pad(m, (0, 0, 0, ns * SLICE - K))
     b = m.reshape(P, ns, SLICE, N // ZCOLS, ZCOLS).permute(1, 3, 0, 4, 2)
-    return _swizzled(b).reshape(ns * N // ZCOLS, P,
+    return signal.swizzled(b).reshape(ns * N // ZCOLS, P,
                                 ZCOLS * SLICE).contiguous()
 
 

@@ -26,9 +26,9 @@ order of :data:`PASS_ORDER`, each product exact in f32 and summed in f32:
   with lo the two-way split's, which is mid;
 - ``"default"``: hi(x)*hi(W) alone.
 
-All three run on one bf16 tensor-core kernel, ``csrc/signal_mma.cu``,
-counted in :data:`mma_launches`, with the constants split on the host and
-cached per config and device (:func:`mma_constants`).
+All three run on one bf16 tensor-core kernel, ``csrc/signal_mma.cu``
+(``wgmma``), counted in :data:`mma_launches`, with the constants split and
+packed on the host and cached per config and device (:func:`mma_blocks`).
 
 The twin (:func:`signal_features_reference`) runs the same products as f32
 matrix products of the bf16 pieces (:func:`mm`), TF32 off, so the kernel
@@ -43,10 +43,20 @@ for "highest"'s six passes at the published 989 TFLOP/s bf16 dense peak,
 kernel keeps frames, spectrum and mel on the SM, so device memory sees only
 the signal, the constants and the features.
 
-Bits: the kernel's tile (MMA_TILE_FRAMES frames of the whole call, across
-utterances and streams) and the order of every sum are fixed, whatever the
-call's shape, so a frame's features do not depend on where it falls in a
-call. It takes any n_mels, in slabs of MMA_MEL_SLAB bands.
+The kernel's tile is MMA_TILE_FRAMES frames of the whole call, across
+utterances and streams, in two warpgroups of 64. It stages the samples the
+tile's frames cover once, as one span per row of ``buf`` (or, where the
+spans do not fit, frame by frame in windows of the depth:
+:func:`tile_plan`, :func:`staged_rows`), and streams CS's and FB's slices,
+MMA_DEPTH deep and packed on the host in ``wgmma``'s 128-byte swizzle
+(:func:`mma_blocks`), through a ring that every frame of the tile shares.
+z comes in chunks of MMA_COLS columns; z*z stays in registers as the mel
+product's operand.
+
+Bits: the tile and the order of every sum are fixed, whatever the call's
+shape, so a frame's features do not depend on where it falls in a call or
+on how its samples were staged. It takes any n_mels, in slabs of
+MMA_MEL_SLAB bands.
 
 The staged kernels (``kernels/staged.py``) live in the same library and
 share this module's binding (:func:`lib`), constants and twin body.
@@ -57,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,10 +76,15 @@ from tpufeat_torch import framing, matrices
 from tpufeat_torch.config import FeatureConfig
 from tpufeat_torch.kernels import _build
 
-MMA_TILE_FRAMES = 64   # frames per block: TM in csrc/signal_mma.cu
-MMA_COLS = 128         # DFT columns per chunk: NT
-MMA_DEPTH = 32         # depth of a staged slice: KC
+MMA_TILE_FRAMES = 128  # frames per tile: TM in csrc/signal_mma.cu
+MMA_COLS = 128         # DFT columns per chunk of z: NT
+MMA_DEPTH = 64         # depth of a ring slice (a swizzled row): KS
 MMA_MEL_SLAB = 128     # mel bands per pass: SLAB
+#: samples that fit each staged plane of the signal at each pass count:
+#: 128 KiB of shared memory as bf16 pieces at one pass (one plane) and
+#: three (two), f32 at six, 16 bytes of padding after every 128
+#: (csrc/signal_mma.cu Sig::CAP)
+SPAN_SAMPLES = {1: 58240, 3: 29120, 6: 29120}
 #: bf16 passes per product of each matmul_precision
 PASSES = {"highest": 6, "bf16x3": 3, "default": 1}
 #: the (x piece, W piece) of each pass, in the order every product sums
@@ -260,6 +276,127 @@ def mma_constants(cfg: FeatureConfig, fold_kaldi: bool = True) -> tuple:
                 for t in split_pieces(torch.tensor(dct), n)))
 
 
+@functools.lru_cache(maxsize=None)
+def _swizzle_index(rows: int) -> torch.Tensor:
+    n = torch.arange(rows)[:, None]
+    k = torch.arange(64)[None, :]
+    return (n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
+
+
+def swizzled(blocks: torch.Tensor) -> torch.Tensor:
+    """[..., n, 64] blocks -> [..., n * 64] in wgmma's K-major 128-byte
+    swizzle: row n is 128 bytes of bf16, and its eight 16-byte pieces are
+    permuted by n % 8."""
+    rows = blocks.shape[-2]
+    flat = blocks.reshape(*blocks.shape[:-2], rows * 64)
+    out = torch.empty_like(flat)
+    out[..., _swizzle_index(rows)] = flat
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def mma_blocks(cfg: FeatureConfig, fold_kaldi: bool = True) -> tuple:
+    """:func:`mma_constants` as the kernel's ring reads them, CPU tensors:
+    (cs, fb, dct). cs: bf16 [chunks, slices, pieces, 2, 64 * 64], each
+    piece of a chunk's MMA_COLS columns by a slice MMA_DEPTH deep as its two
+    halves of 64 columns, K-major (a row of 64 depths per column) in
+    :func:`swizzled` order, so that the halves of a piece stack into the
+    128 rows one wgmma reads; fb: bf16 [slabs, blocks, pieces, 128 * 64], a
+    slab's 128 bands (zeros past n_mels) by 64 of z's columns, the same
+    way; dct: :func:`mma_constants`'s pieces."""
+    cs, fb, dct = mma_constants(cfg, fold_kaldi)
+    m = torch.stack(cs)
+    n, depth, cols = m.shape
+    half = MMA_COLS // 2
+    m = m.reshape(n, depth // MMA_DEPTH, MMA_DEPTH, cols // MMA_COLS, 2, half)
+    cs_blocks = swizzled(m.permute(3, 1, 0, 4, 5, 2)).contiguous()
+    slabs = -(-cfg.n_mels // MMA_MEL_SLAB)
+    f = torch.stack(fb)
+    f = torch.cat([f, f.new_zeros(n, cols, slabs * MMA_MEL_SLAB - f.shape[2])],
+                  2)
+    f = f.reshape(n, cols // half, half, slabs, MMA_MEL_SLAB)
+    fb_blocks = swizzled(f.permute(3, 1, 0, 4, 2)).contiguous()
+    return cs_blocks, fb_blocks, dct
+
+
+class TilePlan(NamedTuple):
+    """How the kernel stages one tile's samples (csrc/signal_mma.cu
+    tile_span, stage_spans, stage_window)."""
+    valid: int             # the tile's frames (the last tile's may be fewer)
+    spans: tuple           # (row of buf, first sample, offset, samples) of
+                           # each span in the staged planes; () frame by frame
+    bases: np.ndarray | None   # [MMA_TILE_FRAMES]: where each tile row's
+                               # frame starts in the planes (rows past valid:
+                               # frame 0's); None frame by frame
+    window: int            # frame by frame: the depth of a window, its rows
+                           # window + 8 samples apart; 0 with spans
+
+
+def tile_plan(batch: int, M: int, n_frames: int, hop: int, fl: int,
+              tile: int, n_passes: int) -> TilePlan:
+    """The kernel's plan for ``tile`` of a call over ``buf`` [batch, M]:
+    the spans of samples that the tile's frames cover in each row of buf,
+    from the first frame's start to the last frame's end, rounded up to 8
+    samples, one after the other in the staged planes; or, where they do
+    not fit in SPAN_SAMPLES[n_passes] (with 16 samples to spare for the
+    last frame's 16-deep step past fl), frame by frame in windows of the
+    depth."""
+    tm = MMA_TILE_FRAMES
+    g0 = tile * tm
+    valid = min(tm, batch * n_frames - g0)
+    b0, t0 = divmod(g0, n_frames)
+    b1, tl = divmod(g0 + valid - 1, n_frames)
+    spans, offset = [], 0
+    for b in range(b0, b1 + 1):
+        first = t0 if b == b0 else 0
+        last = tl if b == b1 else n_frames - 1
+        n = _round_up((last - first) * hop + fl, 8)
+        spans.append((b, first * hop, offset, n))
+        offset += n
+    cap = SPAN_SAMPLES[n_passes]
+    if offset + 16 > cap:
+        return TilePlan(valid, (), None,
+                        (cap // tm - 8) // MMA_DEPTH * MMA_DEPTH)
+    b, t = np.divmod(g0 + np.arange(tm), n_frames)
+    start = {row: o - s0 for row, s0, o, _ in spans}
+    bases = np.array([start[b[r]] + t[r] * hop if r < valid else 0
+                      for r in range(tm)])
+    return TilePlan(valid, tuple(spans), bases, 0)
+
+
+def staged_rows(buf: np.ndarray, n_frames: int, hop: int, fl: int,
+                tile: int, n_passes: int) -> np.ndarray:
+    """What the kernel's A fragments hold for ``tile`` before the split:
+    [MMA_TILE_FRAMES, round_up(fl, 16)] float32, row r tile row r's frame
+    as read from the planes staged by :func:`tile_plan` (zeros past M), its
+    columns at or past fl zero."""
+    batch, M = buf.shape
+    plan = tile_plan(batch, M, n_frames, hop, fl, tile, n_passes)
+    tm, depth = MMA_TILE_FRAMES, _round_up(fl, 16)
+    k = np.arange(depth)
+    if not plan.window:
+        plane = np.zeros(SPAN_SAMPLES[n_passes], np.float32)
+        for b, s0, offset, n in plan.spans:
+            real = max(0, min(n, M - s0))
+            plane[offset: offset + real] = buf[b, s0: s0 + real]
+        rows = plane[plan.bases[:, None] + k[None, :]]
+    else:
+        fw, rows = plan.window, np.zeros((tm, depth), np.float32)
+        r = np.arange(tm)
+        for w in range(-(-fl // fw)):
+            plane = np.zeros(tm * (fw + 8), np.float32)
+            for i in range(plan.valid):
+                b, t = divmod(tile * tm + i, n_frames)
+                lim = max(0, min(fl, M - t * hop))
+                kk = np.arange(w * fw, min((w + 1) * fw, lim))
+                plane[i * (fw + 8) + kk - w * fw] = buf[b, t * hop + kk]
+            cols = k[(k >= w * fw) & (k < (w + 1) * fw)]
+            rows[:, cols] = plane[(r * (fw + 8) - w * fw)[:, None]
+                                  + cols[None, :]]
+    rows[:, fl:] = 0.0
+    return rows
+
+
 def put(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
     """A cached constant as a tensor on ``device`` (None stays None)."""
     return None if a is None else torch.tensor(a, device=device)
@@ -279,11 +416,12 @@ def ptrs(tensors: tuple) -> list:
 @functools.lru_cache(maxsize=None)
 def _mma_device_constants(cfg: FeatureConfig, fold_kaldi: bool,
                           device: torch.device) -> tuple:
-    """Each constant's pieces on ``device``, padded with None to three (the
-    kernel's hi, mid, lo arguments)."""
-    return tuple(tuple([t.to(device).contiguous() for t in pieces or ()]
-                       + [None] * (3 - len(pieces or ())))
-                 for pieces in mma_constants(cfg, fold_kaldi))
+    """The packed cs and fb on ``device``, and the DCT's pieces padded with
+    None to three (the kernel's hi, mid, lo arguments)."""
+    cs, fb, dct = mma_blocks(cfg, fold_kaldi)
+    return (cs.to(device), fb.to(device),
+            tuple([t.to(device).contiguous() for t in dct or ()]
+                  + [None] * (3 - len(dct or ()))))
 
 
 def _check(buf: torch.Tensor, n_frames: int, cfg: FeatureConfig) -> None:
@@ -359,11 +497,11 @@ def lib(csrc: str) -> ctypes.CDLL:
     ll, out = ctypes.c_longlong, ctypes.POINTER(i)
     for name, args in (
             ("tpufeat_signal_features_mma",
-             [i, p, i, ll, i, i, i, p, p, p, i, p, p, p, i, i, i, f, p, p, p,
-              i, p, i, p]),
+             [i, p, i, ll, i, i, i, p, i, p, i, i, i, f, p, p, p, i, p, i,
+              p]),
             ("tpufeat_mel_log_dct_mma",
              [i, p, ll, i, p, i, i, f, p, i, p, i, p]),
-            ("tpufeat_signal_mma_resources", [i, i, out, out]),
+            ("tpufeat_signal_mma_resources", [i, i, out, out, out, out]),
             ("tpufeat_tail_mma_resources",
              [i, i, i, i, out, out, out, out, out])):
         getattr(so, name).argtypes = args
@@ -391,12 +529,13 @@ def query_resources(query, *args, outputs: int = 2) -> tuple[int, ...]:
     return tuple(v.value for v in got)
 
 
-def mma_resources(cfg: FeatureConfig) -> tuple[int, int]:
-    """(dynamic shared memory per block in bytes, blocks per SM) of the
+def mma_resources(cfg: FeatureConfig) -> tuple[int, int, int, int]:
+    """(dynamic shared memory per block in bytes, blocks per SM, registers
+    per thread at launch, local memory per thread in bytes: spills) of the
     kernel's launch at ``cfg``'s precision and n_mels on the current CUDA
     device, K1 and K3 alike."""
     return query_resources("tpufeat_signal_mma_resources", passes(cfg),
-                           cfg.n_mels)
+                           cfg.n_mels, outputs=4)
 
 
 def launch_mma(buf: torch.Tensor, n_frames: int, hop: int,
@@ -410,7 +549,7 @@ def launch_mma(buf: torch.Tensor, n_frames: int, hop: int,
     B, M = buf.shape
     err = so.tpufeat_signal_features_mma(
         buf.device.index, buf.data_ptr(), B, M, n_frames, hop,
-        cfg.frame_length, *ptrs(cs), 2 * cfg.n_bins - 2, *ptrs(fb),
+        cfg.frame_length, cs.data_ptr(), 2 * cfg.n_bins - 2, fb.data_ptr(),
         cfg.n_mels, int(cfg.spectrum == "magnitude"), _LOG_KIND[cfg.log],
         cfg.log_floor, *ptrs(dct), out.shape[-1], out.data_ptr(),
         passes(cfg), torch.cuda.current_stream(buf.device).cuda_stream)
